@@ -1,0 +1,72 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "waveverify_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / "waveverify_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_no_forbidden_imports_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+_PROGRAM = r"""
+import sys
+for name in ("jax", "flax", "jaxlib"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import waveverify_torch
+from waveverify_torch.config import DetectorConfig, GeneratorConfig, TrainConfig
+from waveverify_torch.models import WatermarkModels
+from waveverify_torch.serve import embed_detect
+
+small = dict(dimension=32, channels_enc=8, kernel_size=5, last_kernel_size=5,
+             residual_kernel_size=5, dilation_base=1, skip="identity",
+             causal=True, encoder_l2norm=True, bias=True,
+             spec_compression="log", zero_init=False, n_residual_enc=1)
+cfg = TrainConfig(generator=GeneratorConfig(channels_dec=12, n_residual_dec=1, **small),
+                  detector=DetectorConfig(output_dim=8, **small))
+models = WatermarkModels(cfg)
+gen = torch.Generator().manual_seed(0)
+with torch.no_grad():
+    for p in models.parameters():
+        p.copy_(torch.rand(p.shape, generator=gen) * 0.2 + 0.1)
+rng = np.random.RandomState(0)
+audio = torch.from_numpy((rng.randn(2, 960) * 0.1).astype(np.float32))
+msg = torch.from_numpy(rng.randint(0, 2, (2, 16)).astype(np.float32))
+w, p = embed_detect(models, audio, msg)
+assert w.shape == (2, 960) and p.shape == (2, 16)
+assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(p).all())
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")

@@ -1,0 +1,91 @@
+"""Carry weights from the JAX package's formats into the port's modules.
+
+The ``.npz`` written by ``save_weights_npz`` holds f16 arrays under
+'/'-joined flax paths plus a ``__config__`` JSON snapshot. It is read with
+numpy alone and upcast to f32 as ``load_weights_npz`` does. The port's
+modules carry the flax names, so a path maps onto a parameter by replacing
+'/' with '.'; only the layouts change:
+
+- conv ``v``: WIO ``(K, Cin / g, Cout)`` -> torch ``(Cout, Cin / g, K)``;
+- transposed-conv ``v``: already ``(Cin, Cout / g, K)``;
+- Dense ``kernel (in, out)`` -> ``Linear.weight (out, in)``; ``bias`` as is.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Set, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from waveverify_torch.modules.conv import NormConv1d, NormConvTranspose1d
+
+
+def read_npz(path: Union[str, Path]) -> Tuple[Dict[str, np.ndarray],
+                                               Optional[Dict[str, Any]]]:
+    """(flat f32 arrays by flax path, model-config snapshot or None)."""
+    with np.load(Path(path)) as z:
+        flat = {k: np.asarray(z[k], np.float32) for k in z.files
+                if not k.startswith("__")}
+        snap = (json.loads(bytes(z["__config__"]).decode())
+                if "__config__" in z.files else None)
+    return flat, snap
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax params dict (numpy leaves) -> '/'-joined flat dict."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            out.update(flatten(value, path))
+        else:
+            out[path] = np.asarray(value, np.float32)
+    return out
+
+
+def _to_torch_layout(owner: nn.Module, name: str,
+                     value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if isinstance(owner, NormConv1d) and name == "v":
+        return name, np.transpose(value, (2, 1, 0))
+    if isinstance(owner, NormConvTranspose1d) and name == "v":
+        return name, value
+    if isinstance(owner, nn.Linear):
+        if name == "kernel":
+            return "weight", value.T
+        return name, value
+    return name, value
+
+
+def load_params(module: nn.Module, flat: Mapping[str, np.ndarray],
+                prefix: str) -> Set[str]:
+    """Copy every ``flat`` entry under ``prefix/`` into ``module``.
+
+    Returns the keys consumed. Raises if an entry names no parameter, if a
+    shape disagrees, or if a parameter of ``module`` is left unset."""
+    params = dict(module.named_parameters())
+    consumed: Set[str] = set()
+    seen: Set[str] = set()
+    for key, value in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        path = key[len(prefix) + 1:].split("/")
+        owner = module.get_submodule(".".join(path[:-1]))
+        name, arr = _to_torch_layout(owner, path[-1], value)
+        full = ".".join(path[:-1] + [name])
+        if full not in params:
+            raise KeyError(f"{key}: no parameter {full} in {type(module).__name__}")
+        p = params[full]
+        if tuple(p.shape) != arr.shape:
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+        consumed.add(key)
+        seen.add(full)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"parameters not in the checkpoint under {prefix}/: {missing}")
+    return consumed
