@@ -6,14 +6,19 @@ Phases, each fatal on failure:
   2. build: compile csrc/resblock_chain.cu for sm_90a with nvcc;
   3. kernel vs plain version on the card: the 12 resblock chains of
      embed+detect at batch 2, ragged tiles with M = 1/2/3 and non-zero
-     biases, f32 (TF32 off) and bf16, and the autograd Function's gradients;
+     biases, narrow widths (C = 32, 48), a T shorter than the halo, batch 1,
+     f32 (TF32 off) and bf16, and the autograd Function's gradients;
   4. main path: the committed r5 checkpoint served through
      WaveVerify.embed_batch / detect_batch and serve.embed_detect at batch
      64 x 1 s, f32 and bf16, with the kernel's launch count read around it,
      and a batch-4 comparison against the port on the CPU;
   5. times (CUDA events, after warm-up): embed+detect clips/s at batch 64,
      the host time to submit one call, the device's busy share, and per
-     chain shape the kernel, the plain version and the bound.
+     chain shape the kernel, the plain version, the bound, the product's
+     rows per pass, registers and CTAs per SM, and the chain's C x C
+     products alone through torch.matmul.
+
+With --kernel-only the run stops after phase 3 and prints no result line.
 
 Prints the card line and the kernels JSON line before the last line, which
 is {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -32,9 +37,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside
-# the tensor cores, and HBM3 bandwidth.
+# the tensor cores, TF32 in them, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# The kernel's f32 product is three TF32 passes (split TF32).
+TF32_PASSES = 3
 
 BATCH = 64
 CLIP = 16000
@@ -45,6 +53,10 @@ GEN_DEC = [(400, 768, 3), (2000, 384, 3), (8000, 192, 3), (16000, 96, 3)]
 DET_ENC = GEN_ENC
 CHAINS = GEN_ENC + GEN_DEC + DET_ENC
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
+# The f32 kernel's max |err| grows with the width (more sums per output); it
+# must stay under half of atol at every width, so that a drift shows here
+# before it reaches the tolerance.
+F32_DRIFT = 0.5 * F32_TOL["atol"]
 # bf16 I/O: each launch rounds its output once to bf16 (8-bit mantissa); a
 # per-block plan rounds up to M times, so allow two roundings at the
 # output's largest magnitude
@@ -77,6 +89,8 @@ def check_close(torch, y, ref, what):
     err = (y.float() - ref.float()).abs().max().item()
     if y.dtype == torch.float32:
         torch.testing.assert_close(y, ref, **F32_TOL, msg=lambda m: f"{what}: {m}")
+        if not err <= F32_DRIFT:
+            raise AssertionError(f"{what}: f32 max err {err} > {F32_DRIFT}, half of atol")
     else:
         scale = ref.float().abs().max().item()
         if not err <= BF16_REL * scale:
@@ -175,26 +189,54 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {lib.name} in {report['build_s']:.1f} s")
     ptxas = (lib.parent / f"{lib.stem}.log").read_text()
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    report["ptxas"] = {"registers": regs, "spill_store_bytes": spills}
-    print(f"ptxas: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-          f"spill stores up to {max(spills)} bytes")
+    kernels_built = []
+    for entry, stack, stores, loads, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
+        io = "bf16" if "bfloat16" in entry else "f32"
+        nt, mt, minb = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi5E", entry).groups()
+        kernels_built.append({"io": io, "tiling": [int(nt), int(mt)],
+                              "min_ctas_per_sm": int(minb), "registers": int(regs),
+                              "spill_store_bytes": int(stores),
+                              "spill_load_bytes": int(loads), "stack_bytes": int(stack)})
+    report["ptxas"] = kernels_built
+    print("ptxas (NT x MT, min CTAs/SM: registers f32 / bf16): " + ", ".join(
+        f"{k['tiling'][0]}x{k['tiling'][1]},{k['min_ctas_per_sm']}: "
+        + " / ".join(str(j["registers"]) for j in kernels_built
+                     if j["tiling"] == k["tiling"])
+        for k in kernels_built if k["io"] == "f32"))
+    # every function of the log, the kernels' device functions included
+    spilled = [(name[-60:], int(st), int(ld)) for name, st, ld in re.findall(
+        r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) bytes spill "
+        r"stores, (\d+) bytes spill loads", ptxas) if int(st) or int(ld)]
+    print(f"ptxas: {len(kernels_built)} kernels, spills (function, bytes stored, "
+          f"loaded): {spilled or 'none'}")
+    if len(kernels_built) != 2 * len(rc._TILINGS):
+        raise AssertionError("ptxas log does not list every instantiation")
+    if spilled:
+        raise AssertionError("ptxas spilled registers in some instantiation")
 
     # 3. kernel against its plain version
     strict_f32()
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    shapes = [(t, c, m) for t, c, m in CHAINS]
-    shapes += [(1000, 64, 1), (777, 128, 2), (131, 96, 3), (100, 768, 3)]  # ragged
-    for i, (t, c, m) in enumerate(shapes):
+    errs_by_width = {}
+    shapes = [(2, t, c, m) for t, c, m in CHAINS]
+    shapes += [(2, 1000, 64, 1), (2, 777, 128, 2), (2, 131, 96, 3),
+               (2, 100, 768, 3)]  # ragged
+    # few n-tiles and idle warps; all of tile 0's halo is padding; batch 1
+    shapes += [(2, 300, 32, 1), (2, 300, 48, 2), (2, 20, 96, 3), (2, 20, 768, 3),
+               (1, 1000, 128, 2)]
+    for i, (b, t, c, m) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
-            x, ws, ps = chain_inputs(torch, 2, t, c, m, i, dtype)
+            x, ws, ps = chain_inputs(torch, b, t, c, m, i, dtype)
             y = rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
             ref = rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
             torch.cuda.synchronize()
             name = str(dtype).split(".")[1]
-            err = check_close(torch, y, ref, f"chain T={t} C={c} M={m} {name}")
+            err = check_close(torch, y, ref, f"chain B={b} T={t} C={c} M={m} {name}")
             errs[name] = max(errs[name], err)
+            if dtype == torch.float32:
+                errs_by_width[c] = max(errs_by_width.get(c, 0.0), err)
     x, ws, ps = chain_inputs(torch, 2, 64, 16, 2, 99, torch.float32)
     leaves = [x] + ws
     for v in leaves:
@@ -209,8 +251,13 @@ def main() -> int:
         torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
     torch.cuda.synchronize()
     report["kernel_check_max_abs_err"] = errs
+    report["kernel_check_f32_max_abs_err_by_width"] = errs_by_width
     print(f"kernel vs plain: {len(shapes)} shapes x f32/bf16 ok, max |err| "
           f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; gradients ok")
+    print(f"kernel vs plain, f32 max |err| by width (limit {F32_DRIFT:.1e}, half of "
+          "atol): " + ", ".join(f"C={c} {e:.2e}" for c, e in sorted(errs_by_width.items())))
+    if "--kernel-only" in sys.argv[1:]:
+        return 0
 
     # 4. main path
     r5 = ROOT / "weights" / "waveverify_demo_r5.npz"
@@ -298,7 +345,26 @@ def main() -> int:
               f"{total_ms:.3f} device ms/call, chain kernel {chain_ms:.3f} ms; top: "
               + "; ".join(f"{k[:40]} {ms:.2f}" for k, ms in top[:4]))
 
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0}
+    def bounds(flops, nbytes):
+        """(FMA bound, bound, bound_by) in seconds: the f32 FMA rate the first
+        kernel was held to, and the split-TF32 tensor-core rate it runs at now."""
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS
+        return (max(flops / PEAK_F32_FLOPS, t_bytes), max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def products_matmul_ms(x, ws, m, allow_tf32):
+        """The chain's 2 m C x C products alone, each as one torch.matmul
+        over x: what the library's GEMM takes for the kernel's main work."""
+        mats = [ws[j][i].t().contiguous() for i in range(m) for j in (0, 3)]
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        ms = cuda_time(torch, lambda: [torch.matmul(w, x) for w in mats], 3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return ms
+
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0,
+           "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0}
     unique = list(dict.fromkeys(CHAINS))
     for i, (t, c, m) in enumerate(unique):
         count = CHAINS.count((t, c, m))
@@ -308,26 +374,47 @@ def main() -> int:
         err = check_close(torch, run_k(), run_p(), f"batch-64 chain T={t} C={c}")
         ms_k = cuda_time(torch, run_k, 5)
         ms_p = cuda_time(torch, run_p, 3)
+        mm_f32 = products_matmul_ms(x, ws, m, False)
+        mm_tf32 = products_matmul_ms(x, ws, m, True)
         flops, nbytes = chain_cost(BATCH, t, c, m, 4)
-        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        fma_bound, bound, bound_by = bounds(flops, nbytes)
+        if ms_k < bound * 1e3:
+            raise AssertionError(f"chain T={t} C={c}: kernel {ms_k} ms is under its "
+                                 f"bound {bound * 1e3} ms: the count is wrong")
+        plan = rc.chain_plan(c, m, 5)
+        slab_rows = plan[0][0] * 8 + min(plan[0][1], t)
+        regs, ctas = rc.kernel_info(c, slab_rows)
+        nt, mt, _ = rc.product_tiling(c)
         row = {"T": t, "C": c, "M": m, "per_call": count,
-               "launches": rc.launches_per_chain(c, m), "plan": rc.chain_plan(c, m, 5),
-               "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e3,
-               "bound_by": "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
-               else "bytes", "max_abs_err": err}
+               "launches": len(plan), "plan": plan,
+               "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e6,
+               "fma_bound_us": fma_bound * 1e6, "bound_by": bound_by,
+               "max_abs_err": err, "tiling": [nt, mt], "rows_per_pass": rc.chunk_rows(c),
+               "slab_rows": slab_rows, "registers": regs, "ctas_per_sm": ctas,
+               "products_matmul_ms": {"f32": mm_f32, "tf32": mm_tf32}}
         rows.append(row)
         tot["ms"] += count * ms_k
         tot["plain_ms"] += count * ms_p
         tot["flops"] += count * flops
         tot["bytes"] += count * nbytes
+        tot["matmul_f32_ms"] += count * mm_f32
+        tot["matmul_tf32_ms"] += count * mm_tf32
         tot["err"] = max(tot["err"], err)
         print(f"chain T={t} C={c} M={m} x{count}: kernel {ms_k:.3f} ms, plain "
-              f"{ms_p:.3f} ms, bound {bound * 1e3:.1f} us ({row['bound_by']}), "
-              f"{row['launches']} launch(es) {row['plan']}", flush=True)
+              f"{ms_p:.3f} ms, bound {bound * 1e6:.1f} us ({bound_by}; f32 FMA bound "
+              f"{fma_bound * 1e6:.1f} us), {len(plan)} launch(es) {plan}; NT x MT "
+              f"{nt} x {mt}, R {row['rows_per_pass']} of {slab_rows} slab rows, "
+              f"{regs} registers, {ctas} CTA/SM; products alone by torch.matmul "
+              f"{mm_f32:.3f} ms f32, {mm_tf32:.3f} ms TF32", flush=True)
     report["chains_f32_batch64"] = rows
-    print("library_ms: none (no single PyTorch call computes a resblock chain)")
+    print("library_ms: none (no single PyTorch call computes a resblock chain); "
+          f"products_matmul_ms per embed+detect, informational: f32 "
+          f"{tot['matmul_f32_ms']:.3f}, TF32 allowed {tot['matmul_tf32_ms']:.3f}")
 
-    t_ops, t_bytes = tot["flops"] / PEAK_F32_FLOPS, tot["bytes"] / PEAK_BYTES
+    fma_bound, bound, bound_by = bounds(tot["flops"], tot["bytes"])
+    print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms; bound "
+          f"{bound * 1e3:.3f} ms ({TF32_PASSES} TF32 passes at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); f32 FMA bound {fma_bound * 1e3:.3f} ms")
     kernels = {"kernels": [{
         "name": "resblock_chain",
         "route": "cuda",
@@ -337,11 +424,14 @@ def main() -> int:
         "max_abs_err": tot["err"],
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound * 1e3,
+        "bound_by": bound_by,
         "library_ms": None,
     }]}
     report["kernels"] = kernels
+    report["fma_bound_ms"] = fma_bound * 1e3
+    report["products_matmul_ms"] = {"f32": tot["matmul_f32_ms"],
+                                    "tf32": tot["matmul_tf32_ms"]}
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

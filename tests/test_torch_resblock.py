@@ -1,9 +1,13 @@
 """The resblock-chain plain version against the JAX chain (plain XLA and the
 Pallas kernel in interpret mode, both layouts), its CPU dispatch, its
-autograd Function, and the kernel's launch plan.
+autograd Function, the kernel's launch plan and product tilings, the
+split-TF32 product the kernel computes, and the fragment-ordered weights.
 
 f32 tolerance: atol 2e-5, rtol 1e-5 (tests/test_pallas.py's). bf16: one
 bf16 rounding of the output, i.e. 2^-7 of the output's magnitude."""
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +150,157 @@ def test_wrapper_rejects_unsupported_device():
     ws = [torch.zeros(s, device="meta") for s in [(1, 8, 8), (1, 5, 8), (1, 8)] * 2]
     with pytest.raises(RuntimeError):
         rc.resblock_chain(x, *ws, prescales=(1.0,), res_scale=1.0)
+
+
+F32_TOL = dict(atol=2e-5, rtol=1e-5)
+# the locator's 1-block chains ride the same kernel
+PLAN_SHAPES = [(c, m) for _, c, m in MAIN_PATH_CHAINS] + [(32, 1), (64, 1)]
+WIDTHS = sorted({c for c, _ in PLAN_SHAPES} | {16, 48})
+
+
+def test_split_tf32_rounds_to_ten_mantissa_bits():
+    v = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(np.float32))
+    v = torch.cat([v, torch.tensor([0.0, -0.0, 1.0, -1.0, 1.0 + 2.0**-11, 3e-30])])
+    hi, lo = rc.split_tf32(v)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    # hi is v to nearest (half an ulp of 10 bits), hi + lo to 21 bits
+    assert bool(((v - hi).abs() <= v.abs() * 2.0**-11).all())
+    assert bool(((v - hi - lo).abs() <= v.abs() * 2.0**-21).all())
+    assert rc.split_tf32(torch.tensor([1.0 + 2.0**-11]))[0].item() == 1.0 + 2.0**-10
+
+
+@pytest.mark.parametrize("c", [64, 256, 768])
+def test_three_pass_tf32_product_meets_f32_tolerance(c):
+    rng = np.random.RandomState(c)
+    u = torch.from_numpy((rng.randn(2, c, 40) * 0.5).astype(np.float32))
+    pw = torch.from_numpy((rng.randn(c, c) / c**0.5).astype(np.float32))
+    ref = rc._pointwise(pw, u)
+    torch.testing.assert_close(rc.pointwise_tf32x3(pw, u), ref, **F32_TOL)
+    # one TF32 pass is a different result: it is what the two small passes buy
+    one = rc._pointwise(rc.split_tf32(pw)[0], rc.split_tf32(u)[0])
+    assert (one - ref).abs().max().item() > 10 * F32_TOL["atol"]
+
+
+def test_two_pass_product_is_exact_for_bf16_weights():
+    rng = np.random.RandomState(5)
+    u = torch.from_numpy(rng.randn(2, 96, 30).astype(np.float32))
+    pw = torch.from_numpy(rng.randn(96, 96).astype(np.float32)).bfloat16().float()
+    assert int(rc.split_tf32(pw)[1].abs().max()) == 0
+    assert torch.equal(rc.pointwise_tf32x3(pw, u, split_b=False),
+                       rc.pointwise_tf32x3(pw, u))
+
+
+@pytest.mark.parametrize("c,m", [(64, 2), (256, 2), (768, 3)])
+def test_chain_with_three_pass_product_meets_f32_tolerance(c, m):
+    x, ws, ps = _inputs(1, 40, c, m, seed=c)
+    ws[0], ws[3] = [w * (0.2 * c**0.5) ** -1 for w in (ws[0], ws[3])]
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    wt = [torch.from_numpy(w) for w in ws]
+    ref = rc.resblock_chain_ref(xt, *wt, prescales=ps, res_scale=RES_SCALE)
+    y = rc.resblock_chain_ref(xt, *wt, prescales=ps, res_scale=RES_SCALE,
+                              product=rc.pointwise_tf32x3)
+    torch.testing.assert_close(y, ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("c,m", [(256, 2), (768, 3)])
+def test_chain_with_three_pass_product_matches_jax_xla_chain(c, m):
+    # the kernel's arithmetic model against the reference package
+    x, ws, ps = _inputs(1, 40, c, m, seed=c + 1)
+    ws[0], ws[3] = [w * (0.2 * c**0.5) ** -1 for w in (ws[0], ws[3])]
+    y_j = np.asarray(pk._resblock_chain_xla(
+        jnp.asarray(x), *map(jnp.asarray, ws), k=5, d1=1, d2=1, prescales=ps,
+        res_scale=RES_SCALE, alpha=1.0))
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    y = rc.resblock_chain_ref(xt, *[torch.from_numpy(w) for w in ws], prescales=ps,
+                              res_scale=RES_SCALE, product=rc.pointwise_tf32x3)
+    np.testing.assert_allclose(y.numpy().transpose(0, 2, 1), y_j, **F32_TOL)
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("c", [64, 96, 768])
+def test_pack_chain_weights_round_trip(c, m):
+    rng = np.random.RandomState(c + m)
+    pw = torch.from_numpy(rng.randn(m, c, c).astype(np.float32))
+    packed = rc.pack_chain_weights(pw)
+    assert packed.shape == (m, c // 8, c // 16, 32, 4) and packed.is_contiguous()
+    assert torch.equal(rc.unpack_chain_weights(packed), pw)
+    # lane l = 4 g + t of k-step ks holds b0 = B[t][g], b1 = B[t + 4][g] of
+    # the n-tiles 2 p and 2 p + 1
+    for _ in range(100):
+        i, ks, p = rng.randint(m), rng.randint(c // 8), rng.randint(c // 16)
+        lane, q, h = rng.randint(32), rng.randint(2), rng.randint(2)
+        g, t = lane >> 2, lane & 3
+        assert packed[i, ks, p, lane, 2 * q + h] == pw[i, 8 * ks + 4 * h + t,
+                                                       8 * (2 * p + q) + g]
+
+
+def test_packed_weights_are_kept_until_written():
+    pw = torch.randn(2, 32, 32, generator=torch.Generator().manual_seed(0))
+    first = rc._packed(pw)
+    assert rc._packed(pw) is first
+    assert first[1:].is_contiguous()  # a per-block launch takes a slice as it is
+    pw.mul_(2.0)
+    second = rc._packed(pw)
+    assert second is not first
+    assert torch.equal(rc.unpack_chain_weights(second), pw)
+
+
+def test_bf16_activation_needs_bf16_valued_weights():
+    # the bf16 kernel skips the a_hi b_lo pass: weights it would cut must raise
+    pw = torch.randn(2, 32, 32, generator=torch.Generator().manual_seed(1))
+    assert rc._packed(pw) is not None
+    with pytest.raises(ValueError, match="bfloat16 values"):
+        rc._packed(pw, bf16=True)
+    slots = [(pw[i], torch.zeros(5, 32), torch.zeros(32)) * 2 for i in range(2)]
+    stacked = rc.stack_chain_weights(slots, torch.bfloat16)
+    assert torch.equal(rc.unpack_chain_weights(rc._packed(stacked[0], bf16=True)),
+                       pw.bfloat16().float())
+
+
+@pytest.mark.parametrize("c,m", PLAN_SHAPES)
+def test_chain_plan_properties(c, m):
+    plan = rc.chain_plan(c, m, 5)
+    assert sum(blocks for blocks, _ in plan) == m
+    for blocks, t_tile in plan:
+        rows = blocks * 8 + t_tile
+        assert t_tile > 0
+        assert rows % 16 == 0
+        assert rc.slab_bytes(c, rows) <= 232448
+        if rc.product_tiling(c)[2] == 2 and t_tile >= 4 * blocks * 8:
+            assert 2 * (rc.slab_bytes(c, rows) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+def test_product_tiling_fits_the_cta(c):
+    nt, mt, ctas = rc.product_tiling(c)
+    wn = -(-c // (8 * nt))
+    assert (nt, mt, ctas) in rc._TILINGS and nt % 2 == 0
+    assert 1 <= wn <= 8 and wn * 8 * nt >= c
+    # sums per thread: at most 96 alone on an SM, 48 where two CTAs share it
+    assert nt * mt * 4 <= (96 if ctas == 1 else 48)
+    assert rc.chunk_rows(c) == 8 // wn * 16 * mt
+    assert rc.chunk_rows(c) * min(c, wn * 8 * nt) <= 256 * 96
+
+
+def test_tilings_match_the_kernel_source():
+    src = (Path(rc.__file__).resolve().parent.parent / "csrc"
+           / "resblock_chain.cu").read_text()
+    line = re.search(r"#define WV_TILINGS\(X\)(.*)", src).group(1)
+    compiled = tuple(tuple(int(n) for n in t)
+                     for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", line))
+    assert compiled == rc._TILINGS
+
+
+@pytest.mark.parametrize("c,ok", [(20, False), (24, False), (40, False), (32, True)])
+def test_wrapper_rejects_widths_the_mma_tiles_cannot_take(c, ok):
+    x = torch.zeros(1, c, 16)
+    ws = [torch.zeros(s) for s in [(1, c, c), (1, 5, c), (1, c)] * 2]
+    if ok:
+        rc._check(x, ws, 1)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            rc._check(x, ws, 1)
 
 
 @pytest.mark.cuda

@@ -2,14 +2,42 @@
 plain PyTorch version.
 
 Counterpart of ``waveverify_tpu/ops/pallas_kernels.py``. The kernel is
-``csrc/resblock_chain.cu`` (see its header for the design and what bounds
-it on the card); it replaces the TPU kernels ``_resblock_kernel_tbc`` and
-``_resblock_kernel``, which compute the same function in two layouts.
+``csrc/resblock_chain.cu`` (see its header for the design); it replaces the
+TPU kernels ``_resblock_kernel_tbc`` and ``_resblock_kernel``, which compute
+the same function in two layouts.
 
 Layouts: activations are ``[B, C, T]``, the port's layout, in f32 or
 bf16. Weights follow the JAX package's orientation: ``pw [M, Cin, Cout]``
 (``u @ pw``), ``dw [M, k, C]``, ``b [M, C]``, stored as f32; under bf16
 serving their values are rounded to bf16 first, as the TPU wrapper does.
+
+The 1x1 products run on the tensor cores with the warp-level
+``mma.sync.m16n8k8`` TF32 instruction (M = time rows, N = output channels,
+K = input channels). With ``g = lane >> 2`` and ``t = lane & 3`` a lane
+holds ``A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]`` of a 16 x 8 tile of
+the activation, ``B[t][g], B[t+4][g]`` of an 8 x 8 tile of ``pw``, and
+``D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]`` of the 16 x 8 sums.
+:func:`pack_chain_weights` lays ``pw`` out in that order, so that a lane
+loads the B values of two neighbouring tiles as one 16-byte word; the
+wrapper keeps the packed copy beside the tensor it was made from.
+
+Split TF32: TF32 keeps 10 mantissa bits, so every operand is split into
+``hi = tf32(v)`` (to nearest) and ``lo = tf32(v - hi)`` (toward zero, by
+the tensor core itself; :func:`split_tf32`) and the
+three products ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` are summed in f32
+(:func:`pointwise_tf32x3` is the same arithmetic in PyTorch). With a bf16
+activation the weights must hold bf16 values (:func:`stack_chain_weights`
+sees to it; the wrapper checks): they are exact in TF32, and the kernel
+skips ``a_hi b_lo``. The tensor core adds into its sums toward zero, so for
+C > 128 the kernel starts each k-step's products from zero and carries the
+sums in f32 adds outside it, which keeps its error at the f32 product's.
+
+What bounds the kernel: each chunk of R rows re-reads the C x C matrix from
+L2, R / 2 FLOP per L2 byte; R is capped by the registers that hold the
+sums and, at C = 768, by the two slabs in shared memory. The kernel takes
+widths that are multiples of 16 (n-tiles are packed in pairs). ``wgmma``
+was not taken: in TF32 it reads its shared-memory operands K-major only,
+and the slab is row-contiguous per channel for the depthwise passes.
 
 Dispatch is by the tensor's device: a CPU tensor goes to
 :func:`resblock_chain_ref`; a CUDA tensor goes to the kernel, or the call
@@ -34,8 +62,16 @@ _MAX_BLOCKS = 8
 # leaves room for two CTAs on one SM (228 KB per SM, 1 KB reserved per CTA).
 _SMEM_FULL = 232448
 _SMEM_HALF = 115712
-# f32 FMA peak over device-memory bandwidth on an H100 SXM: 67e12 / 3.35e12.
-_FLOP_PER_BYTE = 20.0
+# FLOP of the products the kernel does in the time the card moves one byte
+# of device memory, for chain_plan's cost model.
+_FLOP_PER_BYTE = 40.0
+# Product tilings the kernel is compiled for (WV_TILINGS in the source):
+# (NT, MT, CTAs per SM). A warp holds MT x NT mma tiles of sums, 16 MT rows
+# by 8 NT columns; a tiling for one CTA per SM may use up to 255 registers.
+_TILINGS = ((12, 2, 1), (8, 3, 1), (6, 4, 1), (6, 2, 2), (4, 3, 2))
+_WARPS = 8
+# Floats of padding per channel of the slab (kSlabPad in the source).
+_SLAB_PAD = 4
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "resblock_chain.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -63,18 +99,50 @@ def _causal_dw(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return acc + b[:, None]
 
 
+def _pointwise(pw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """1x1 conv: ``out[b, o, t] = sum_i pw[i, o] u[b, i, t]`` in f32."""
+    return torch.einsum("io,bit->bot", pw, u)
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = tf32(v)`` and ``lo = tf32(v - hi)``, where
+    tf32 keeps 10 mantissa bits of an f32, by integer arithmetic on the bit
+    pattern: hi to nearest (add 0x1000, clear the low 13 bits), lo toward
+    zero (clear them, as the tensor core does on reading). The kernel's
+    rule."""
+    v = v.float().contiguous()
+    hi = ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((v - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def pointwise_tf32x3(pw: torch.Tensor, u: torch.Tensor,
+                     split_b: bool = True) -> torch.Tensor:
+    """The kernel's product: :func:`_pointwise` from TF32 operands in three
+    passes, ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, summed in f32 in that
+    order. ``split_b=False`` takes ``pw`` as exact in TF32 (bf16 values) and
+    drops the middle pass."""
+    a_hi, a_lo = split_tf32(u)
+    b_hi, b_lo = split_tf32(pw)
+    out = _pointwise(b_hi, a_lo)
+    if split_b:
+        out = out + _pointwise(b_lo, a_hi)
+    return out + _pointwise(b_hi, a_hi)
+
+
 def resblock_chain_ref(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
                        prescales: Sequence[float], res_scale: float,
-                       alpha: float = 1.0) -> torch.Tensor:
+                       alpha: float = 1.0, product=_pointwise) -> torch.Tensor:
     """M chained residual blocks over ``x [B, C, T]``, step by step, in f32
     (the math of ``_resblock_chain_xla``); the result is cast once to
-    ``x.dtype``. Differentiable."""
+    ``x.dtype``. Differentiable. ``product(pw, u)`` is the 1x1 conv: f32 by
+    default, :func:`pointwise_tf32x3` to follow the kernel's arithmetic."""
     xx = x.float()
     for i, ps in enumerate(prescales):
         u = _elu(xx * ps, alpha)
-        u = torch.einsum("io,bit->bot", pw1s[i].float(), u)
+        u = product(pw1s[i].float(), u)
         u = _elu(_causal_dw(u, dw1s[i].float(), b1s[i].float()), alpha)
-        u = torch.einsum("io,bit->bot", pw2s[i].float(), u)
+        u = product(pw2s[i].float(), u)
         u = _causal_dw(u, dw2s[i].float(), b2s[i].float())
         xx = u * res_scale + xx
     return xx.to(x.dtype)
@@ -85,26 +153,66 @@ def resblock_chain_ref(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
 # --------------------------------------------------------------------------
 
 
+def product_tiling(c: int) -> Tuple[int, int, int]:
+    """``(NT, MT, CTAs per SM)`` of the product at width c, from the
+    compiled tilings. ``wn = ceil(c / (8 NT))`` warps cover the columns and
+    ``8 // wn`` row groups share a chunk. Widths up to 128 take a tiling
+    whose registers leave two CTAs on an SM; wider ones take 96 sums per
+    thread and one CTA. Among those the tiling that keeps most of the
+    warps' columns and row groups in use wins, then the one with more sums
+    per thread, then the one with more warps across the columns."""
+    best, best_key = None, None
+    for nt, mt, ctas in _TILINGS:
+        wn = -(-c // (8 * nt))
+        if wn > _WARPS or ctas != (2 if c <= 128 else 1):
+            continue
+        used = c / (wn * 8 * nt) * (wn * (_WARPS // wn)) / _WARPS
+        key = (used, nt * mt, wn)
+        if best_key is None or key > best_key:
+            best, best_key = (nt, mt, ctas), key
+    if best is None:
+        raise ValueError(f"no product tiling for C={c}")
+    return best
+
+
+def chunk_rows(c: int) -> int:
+    """Rows R of one product pass at width c: every pass re-reads the C x C
+    matrix from L2, so the product does R / 2 FLOP per L2 byte."""
+    nt, mt, _ = product_tiling(c)
+    return _WARPS // -(-c // (8 * nt)) * 16 * mt
+
+
 def slab_bytes(c: int, rows: int) -> int:
     """Shared memory of one CTA: two f32 slabs of c channels, each channel
-    padded to whole 16-row groups plus 4 floats (the kernel's
+    padded to whole 16-row groups plus ``_SLAB_PAD`` floats (the kernel's
     ``slab_stride``)."""
-    return 2 * 4 * c * (-(-rows // 16) * 16 + 4)
+    return 2 * 4 * c * (-(-rows // 16) * 16 + _SLAB_PAD)
+
+
+def _slab_rows(c: int, budget: int) -> int:
+    """Rows of the slabs (halo + tile) that fit ``budget``: a whole number
+    of 16-row groups, and one product pass where a second pass would be at
+    most a quarter full (every pass re-reads the C x C matrix, whatever
+    rows it has left)."""
+    rows = (budget // (2 * 4 * c) - _SLAB_PAD) // 16 * 16
+    r = chunk_rows(c)
+    return r if r < rows <= r + r // 4 else rows
 
 
 def _tile(c: int, m: int, k: int, budget: int) -> int:
-    """Rows of T one CTA owns when its two f32 slabs fit ``budget``; the
-    slab (halo + tile) is a whole number of the kernel's 16-row groups."""
-    rows = (budget // (2 * 4 * c) - 4) // 16 * 16
-    return rows - m * 2 * (k - 1)
+    """Rows of T one CTA owns when its two f32 slabs fit ``budget``."""
+    return _slab_rows(c, budget) - m * 2 * (k - 1)
 
 
 def _launch_tile(c: int, m: int, k: int) -> int:
-    """Tile for an m-block launch: two CTAs per SM when the tile still
-    covers four halos, else the whole shared memory of the SM."""
+    """Tile for an m-block launch: two CTAs per SM when the product's
+    tiling allows two and the tile still covers four halos, else the whole
+    shared memory of the SM."""
     halo = m * 2 * (k - 1)
     tt = _tile(c, m, k, _SMEM_HALF)
-    return tt if tt >= 4 * halo else _tile(c, m, k, _SMEM_FULL)
+    if product_tiling(c)[2] == 2 and tt >= 4 * halo:
+        return tt
+    return _tile(c, m, k, _SMEM_FULL)
 
 
 def chain_plan(c: int, m: int, k: int) -> List[Tuple[int, int]]:
@@ -182,29 +290,72 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.wv_resblock_chain.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
             ctypes.POINTER(f), f, f, i, p]
         lib.wv_resblock_chain.restype = i
+        lib.wv_resblock_chain_info.argtypes = [
+            i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.wv_resblock_chain_info.restype = i
         lib.wv_error_string.argtypes = [i]
         lib.wv_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def pack_chain_weights(pw: torch.Tensor) -> torch.Tensor:
+    """``pw [M, Cin, Cout]`` in the order the kernel's lanes read it:
+    ``[M, Cin / 8, Cout / 16, 32, 4]``. Entry ``[m, ks, p, l, 2 q + h]`` is
+    ``pw[m, 8 ks + 4 h + (l & 3), 16 p + 8 q + (l >> 2)]``: for k-step ks,
+    lane l's ``b0`` (h = 0) and ``b1`` (h = 1) of the n-tiles 2p and 2p + 1."""
+    m, c, c_out = pw.shape
+    if c != c_out or c % 16:
+        raise ValueError(f"pw must be [M, C, C] with C a multiple of 16, got "
+                         f"{tuple(pw.shape)}")
+    v = pw.reshape(m, c // 8, 2, 4, c // 16, 2, 8)  # m ks h t p q g
+    return v.permute(0, 1, 4, 6, 3, 5, 2).reshape(m, c // 8, c // 16, 32, 4).contiguous()
+
+
+def unpack_chain_weights(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_chain_weights`."""
+    m, nks, npairs = packed.shape[:3]
+    v = packed.reshape(m, nks, npairs, 8, 4, 2, 2)  # m ks p g t q h
+    return v.permute(0, 1, 6, 4, 2, 5, 3).reshape(m, nks * 8, npairs * 16).contiguous()
+
+
+def _packed(pw: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """:func:`pack_chain_weights` of ``pw``, kept on the tensor until it is
+    written in place. ``bf16``: the activation is bf16, so the kernel will
+    take ``pw`` as exact in TF32 and skip the ``a_hi b_lo`` pass; values that
+    are not bf16 values would be cut to 10 mantissa bits there, so they
+    raise here (checked once per version of the tensor)."""
+    key = (pw.data_ptr(), pw._version, bf16)
+    hit = getattr(pw, "_packed_for_kernel", None)
+    if hit is None or hit[0] != key:
+        w = pw.detach()
+        if bf16 and not torch.equal(w, w.bfloat16().float()):
+            raise ValueError("with a bfloat16 activation pw must hold bfloat16 "
+                             "values (see stack_chain_weights)")
+        hit = (key, pack_chain_weights(w))
+        pw._packed_for_kernel = hit
+    return hit[1]
+
+
 def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
             alpha, t_tile: int) -> torch.Tensor:
+    """One launch. ``ws`` holds pw1 and pw2 in fragment order."""
     import ctypes
 
     lib = _library()
     b, c, t = x.shape
     m, k = ws[1].shape[0], ws[1].shape[1]
+    nt, mt, _ = product_tiling(c)
     out = torch.empty_like(x)
     ps = (ctypes.c_float * m)(*[float(p) for p in prescales])
     # the C side launches on the current device: make it x's
     with torch.cuda.device(x.device):
         err = lib.wv_resblock_chain(
             x.data_ptr(), *[w.data_ptr() for w in ws], out.data_ptr(), b, c, t, m,
-            k, t_tile, ps, float(res_scale), float(alpha),
+            k, t_tile, nt, mt, ps, float(res_scale), float(alpha),
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -212,6 +363,23 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
                            + lib.wv_error_string(err).decode())
     resblock_chain.launches += 1
     return out
+
+
+def kernel_info(c: int, rows: int, bf16: bool = False) -> Tuple[int, int]:
+    """``(registers per thread, CTAs resident on one SM)`` of the kernel a
+    launch at width c takes when its slabs hold ``rows`` rows. Needs the
+    card."""
+    import ctypes
+
+    lib = _library()
+    nt, mt, _ = product_tiling(c)
+    regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.wv_resblock_chain_info(c, rows, nt, mt, int(bf16),
+                                     ctypes.byref(regs), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError("resblock_chain kernel query failed: "
+                           + lib.wv_error_string(err).decode())
+    return regs.value, ctas.value
 
 
 def _check(x: torch.Tensor, ws: Sequence[torch.Tensor], m: int) -> None:
@@ -234,6 +402,9 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor], m: int) -> None:
     if c > MAX_CHANNELS or k not in KERNEL_SIZES or m > _MAX_BLOCKS:
         raise ValueError(f"kernel takes C <= {MAX_CHANNELS}, k in {KERNEL_SIZES} "
                          f"and M <= {_MAX_BLOCKS}; got C={c}, k={k}, M={m}")
+    if c % 16:
+        raise ValueError(f"kernel takes C a multiple of 16 (its products run as "
+                         f"pairs of 8-column mma tiles); got C={c}")
 
 
 def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
@@ -253,11 +424,12 @@ def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
         raise RuntimeError(f"resblock_chain: unsupported device {x.device}")
     _check(x, ws, m)
     k = dw1s.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    ws = (_packed(pw1s, bf16), dw1s, b1s, _packed(pw2s, bf16), dw2s, b2s)
     i = 0
     for blocks, t_tile in chain_plan(x.shape[1], m, k):
-        sl = slice(i, i + blocks)
-        x = _launch(x, [w[sl].contiguous() if blocks < m else w for w in ws],
-                    prescales[sl], res_scale, alpha, t_tile)
+        sl = slice(i, i + blocks)  # a slice of whole blocks stays contiguous
+        x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile)
         i += blocks
     return x
 
