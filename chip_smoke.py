@@ -5,18 +5,29 @@ Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile csrc/resblock_chain.cu for sm_90a with nvcc;
   3. kernel vs plain version on the card: the 12 resblock chains of
-     embed+detect at batch 2, ragged tiles with M = 1/2/3 and non-zero
-     biases, narrow widths (C = 32, 48), a T shorter than the halo, batch 1,
-     f32 (TF32 off) and bf16, and the autograd Function's gradients;
-  4. main path: the committed r5 checkpoint served through
-     WaveVerify.embed_batch / detect_batch and serve.embed_detect at batch
-     64 x 1 s, f32 and bf16, with the kernel's launch count read around it,
-     and a batch-4 comparison against the port on the CPU;
-  5. times (CUDA events, after warm-up): embed+detect clips/s at batch 64,
-     the host time to submit one call, the device's busy share, and per
-     chain shape the kernel, the plain version, the bound, the product's
-     rows per pass, registers and CTAs per SM, and the chain's C x C
-     products alone through torch.matmul.
+     embed+detect at batch 2, the locator's two chains at batch 2, the
+     widest-T chains of a long-audio window (T = 176000) at batch 1, ragged
+     tiles with M = 1/2/3 and non-zero biases, narrow widths (C = 32, 48), a
+     T shorter than the halo, f32 (TF32 off) and bf16, and the autograd
+     Function's gradients;
+  4. the paths, each with the kernel's launch count read around it, f32
+     and bf16, on the committed r5 checkpoint:
+     a. embed+detect: WaveVerify.embed_batch / detect_batch and
+        serve.embed_detect at batch 64 x 1 s, and a batch-4 comparison
+        against the port on the CPU;
+     b. locate: the locator at batch 64 x 1 s, and a batch-4 comparison
+        against the port on the CPU;
+     c. long audio: WaveVerify.embed / detect_array / locate_array on one
+        120 s clip (12 windows), against the monolithic run on the card;
+     d. the robustness sweep (eval.run_sweep) at the CLI's defaults, row by
+        row against the JAX package's CPU run of the same sweep, with the
+        deltas to its committed sweeps of r5 printed beside;
+  5. times (CUDA events, after warm-up): embed+detect and locate clips/s at
+     batch 64, the host time to submit one call, the device's busy share,
+     the long-audio path's seconds and real-time factor, the sweep's wall
+     seconds with its host share, and per chain shape the kernel, the plain
+     version, the bound, the product's rows per pass, registers and CTAs
+     per SM, and the chain's C x C products alone through torch.matmul.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -52,6 +63,79 @@ GEN_ENC = [(16000, 64, 2), (8000, 128, 2), (2000, 256, 2), (400, 512, 2)]
 GEN_DEC = [(400, 768, 3), (2000, 384, 3), (8000, 192, 3), (16000, 96, 3)]
 DET_ENC = GEN_ENC
 CHAINS = GEN_ENC + GEN_DEC + DET_ENC
+LOC_ENC = [(16000, 32, 1), (4000, 64, 1)]
+# the long-audio path: a 120 s clip in windows of 16000 + 160000 samples
+LONG_SECONDS = 120
+WINDOW = 176000
+LONG_TOL = dict(atol=2e-5, rtol=1e-4)
+# the JAX package's committed sweeps of r5 (batch 16 x 5 s synthetic clips,
+# seed 0, conv precision highest), made on a TPU; the limits a row without
+# randomness is held to, per SWEEP_KEYS
+SWEEP_REF = {"float32": "weights/demo_eval_sweep_r5.json",
+             "bfloat16": "weights/demo_eval_sweep_r5_bf16act.json"}
+SWEEP_KEYS = ("confidence", "miou", "ber", "ber_full")
+SWEEP_LIMITS = {"float32": (1e-3, 1e-3, 2 / 256), "bfloat16": (5e-3, 5e-3, 8 / 256)}
+# The JAX package's sweep of r5 at its CLI's defaults, run on the CPU (f32
+# arithmetic; bf16 activations in the bfloat16 sweep), per row without
+# randomness, SWEEP_KEYS:
+#   JAX_PLATFORMS=cpu python -m waveverify_tpu.eval \
+#       --checkpoint weights/waveverify_demo_r5.npz [--serve-dtype bfloat16]
+# made a few rows at a time as that CLI makes them, by
+#   run_sweep(WaveVerify(checkpoint_path=r5, precision="highest"),
+#             SyntheticAudioDataset(5.0, 16000, 0).batch(16), seed=0,
+#             effects=rows, include_codecs=False, serve_dtype=dtype)
+# (a row without randomness reads only the clips, bits and splice mask).
+# The committed sweeps were made on a TPU, where the effects' FIR and
+# resampling convolutions (waveverify_tpu/ops/dsp.py) run at the default
+# one-pass bf16 precision whatever --conv-precision says: their filter and
+# resampling rows differ from these by up to 0.027 in BER. The identity row
+# agrees (confidence 1.4e-05 apart).
+JAX_CPU_SWEEP = {
+    "float32": {
+        "identity":
+            (0.37695828080177307, 0.9998852610588074, 0.3203125, 0.3203125),
+        "resample(8000)":
+            (0.3664548397064209, 0.9996972680091858, 0.33984375, 0.34375),
+        "resample(32000)":
+            (0.37698957324028015, 0.9998998641967773, 0.32421875, 0.3203125),
+        "speed(0.8)":
+            (0.37739285826683044, 0.9985520839691162, 0.328125, 0.32421875),
+        "highpass_filter(3500)":
+            (0.3787676692008972, 0.9997339844703674, 0.33984375, 0.33984375),
+        "lowpass_filter(2000)":
+            (0.37903472781181335, 0.9992047548294067, 0.3359375, 0.3359375),
+        "bandpass_filter(300,4000)":
+            (0.37809962034225464, 0.9997729659080505, 0.3203125, 0.3203125),
+        "time_shift(161)":
+            (0.3779405951499939, 0.999890148639679, 0.33203125, 0.33203125),
+        "lowpass_filter(2000) + speed(0.8)":
+            (0.37209972739219666, 0.9962466955184937, 0.34375, 0.33203125),
+        "bandpass_filter(300,4000) + resample(32000)":
+            (0.3781033754348755, 0.9997705221176147, 0.3203125, 0.3203125),
+    },
+    "bfloat16": {
+        "identity":
+            (0.37733960151672363, 0.9997949600219727, 0.3203125, 0.3203125),
+        "resample(8000)":
+            (0.3635188341140747, 0.9995191693305969, 0.34375, 0.34375),
+        "resample(32000)":
+            (0.3773341774940491, 0.999804675579071, 0.328125, 0.3203125),
+        "speed(0.8)":
+            (0.3779909014701843, 0.9992900490760803, 0.328125, 0.32421875),
+        "highpass_filter(3500)":
+            (0.37855255603790283, 0.9997315406799316, 0.328125, 0.32421875),
+        "lowpass_filter(2000)":
+            (0.3788701891899109, 0.9990535974502563, 0.3359375, 0.328125),
+        "bandpass_filter(300,4000)":
+            (0.3774205446243286, 0.9997314214706421, 0.3125, 0.3125),
+        "time_shift(161)":
+            (0.37816357612609863, 0.99981689453125, 0.328125, 0.32421875),
+        "lowpass_filter(2000) + speed(0.8)":
+            (0.38061225414276123, 0.9984540343284607, 0.3203125, 0.3203125),
+        "bandpass_filter(300,4000) + resample(32000)":
+            (0.3774164915084839, 0.9997363090515137, 0.3125, 0.3125),
+    },
+}
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
 # The f32 kernel's max |err| grows with the width (more sums per output); it
 # must stay under half of atol at every width, so that a drift shows here
@@ -157,6 +241,233 @@ def chain_cost(b, t, c, m, itemsize, k=5):
     return flops, nbytes
 
 
+def same_decisions(p, ref, margin):
+    """(decided count, whether p and ref take the same `> 0.5` decision
+    wherever ref is more than ``margin`` from 0.5)."""
+    import numpy as np
+
+    sure = np.abs(ref - 0.5) > margin
+    return int(sure.sum()), bool(((p > 0.5) == (ref > 0.5))[sure].all())
+
+
+def check_locate(rc, servers, cpu, audio, report):
+    """Path b: the locator at batch 64 x 1 s on the card, its launches, and
+    batch 4 against the port on the CPU. Returns the launches."""
+    import numpy as np
+
+    per_call = sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)
+    p_cpu = cpu._locate(audio[:4])
+    total = 0
+    report["locate"] = {"launches_per_call": per_call}
+    for dname, wv in servers.items():
+        rc.resblock_chain.launches = 0
+        probs = wv._locate(audio)
+        n = rc.resblock_chain.launches
+        total += n
+        if n != per_call:
+            raise AssertionError(f"locate {dname}: {n} launches != {per_call}")
+        if probs.shape != audio.shape or not np.isfinite(probs).all() or not (
+                (probs >= 0) & (probs <= 1)).all():
+            raise AssertionError(f"locate {dname}: bad probabilities")
+        p_gpu = wv._locate(audio[:4])
+        dp = float(np.abs(p_gpu - p_cpu).max())
+        margin = 1e-3 if dname == "float32" else 0.05
+        decided, same = same_decisions(p_gpu, p_cpu, margin)
+        report["locate"][dname] = {"max_prob_dev_vs_cpu": dp, "decided": decided,
+                                   "same": same}
+        print(f"locate {dname} batch {audio.shape[0]}: {n} launches; batch 4 vs "
+              f"CPU port: max |prob dev| {dp:.3e}, decisions identical on "
+              f"{decided} decided samples: {same}")
+        if dname == "float32" and dp > 1e-4:
+            raise AssertionError(f"locate f32: max |prob dev| {dp} > 1e-4")
+        if not same:
+            raise AssertionError(f"locate {dname}: decisions differ from the CPU port")
+    return total
+
+
+def long_clip():
+    """Seed-0 noise of ``LONG_SECONDS`` seconds, through a 16-bit WAV as a
+    user's file would come, and its watermark."""
+    import tempfile
+
+    import numpy as np
+
+    from waveverify_torch import WatermarkID
+    from waveverify_torch.api.audio_io import save_audio
+
+    clip = (np.random.RandomState(0).randn(LONG_SECONDS * CLIP) * 0.1).astype(np.float32)
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "long.wav"
+    save_audio(clip, path)
+    return tmp, path, WatermarkID.custom("1011001110001111")
+
+
+def run_long(wv, path, wm_id):
+    """The long-audio path through the public entry points: (outputs,
+    launches, seconds) per entry point."""
+    import torch
+
+    from waveverify_torch.api.audio_io import load_audio
+    from waveverify_torch.ops import resblock_chain as rc
+
+    clean, _ = load_audio(path)
+    out, launches, secs = {}, {}, {}
+    calls = {"embed": lambda: wv.embed(path, wm_id)[0],
+             "detect": lambda: wv.detect_array(clean),
+             "locate": lambda: wv.locate_array(clean)}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = rc.resblock_chain.launches
+    return clean, out, launches, secs
+
+
+def check_long(rc, servers, report):
+    """Path c: a 120 s clip through embed / detect_array / locate_array
+    (the chunked path), against the monolithic run of the same models on the
+    card. Returns the launches."""
+    import numpy as np
+
+    from waveverify_torch.api.audio_io import message_to_tensor
+
+    tmp, path, wm_id = long_clip()
+    per_window = {"embed": sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC),
+                  "detect": sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC),
+                  "locate": sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)}
+    bits = message_to_tensor(wm_id.to_bits())
+    total = 0
+    report["long"] = {}
+    with tmp:
+        for dname, wv in servers.items():
+            clean, out, launches, secs = run_long(wv, path, wm_id)
+            windows = len(list(wv._iter_chunks(clean)))
+            want = {k: windows * v for k, v in per_window.items()}
+            total += sum(launches.values())
+            first = wv.chunk_context + wv.chunk_samples  # the first window keeps all
+            if windows != 1 + -(-(len(clean) - first) // wv.chunk_samples) or \
+                    launches != want:
+                raise AssertionError(f"long {dname}: {windows} windows, launches "
+                                     f"{launches} != {want}")
+            x, t = wv._pad_bucket(clean)
+            mono = {"embed": wv._embed(x, bits)[0, :t],
+                    "detect": wv._detect_probs(x)[0, :t].double().mean(0).float().cpu().numpy(),
+                    "locate": wv._locate(x)[0, :t]}
+            chunked = {"embed": out["embed"], "detect": wv._detect_long(clean)[0],
+                       "locate": out["locate"]}
+            devs = {k: float(np.abs(chunked[k] - mono[k]).max()) for k in mono}
+            wm_conf = out["detect"][1]
+            devs["confidence"] = abs(wm_conf - float(mono["detect"].mean()))
+            report["long"][dname] = {"windows": windows, "launches": launches,
+                                     "first_call_s": secs, "max_dev_vs_monolithic": devs}
+            print(f"long {dname}: {LONG_SECONDS} s in {windows} windows of "
+                  f"{wv.chunk_context + wv.chunk_samples}, "
+                  f"launches {launches}; chunked vs monolithic max |dev| " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in devs.items()))
+            for k in mono:
+                if dname == "float32":
+                    np.testing.assert_allclose(chunked[k], mono[k], **LONG_TOL,
+                                               err_msg=f"long f32 {k}")
+                else:
+                    limit = BF16_REL * max(1.0, float(np.abs(mono[k]).max()))
+                    if not devs[k] <= limit:
+                        raise AssertionError(f"long bf16 {k}: {devs[k]} > {limit}")
+            if not np.isfinite(out["embed"]).all():
+                raise AssertionError(f"long {dname}: non-finite output")
+    return total
+
+
+def sweep_inputs():
+    from waveverify_torch.train.data import SyntheticAudioDataset
+
+    return SyntheticAudioDataset(5.0, CLIP, 0).batch(16)
+
+
+def check_sweep(rc, servers, report):
+    """Path d: run_sweep on r5 at the CLI's defaults (16 x 5 s synthetic
+    clips, seed 0, every default row, the codec rows), f32 and bf16, held
+    row by row to the JAX package's run of the same sweep on the CPU
+    (``JAX_CPU_SWEEP``); the codec rows carry the status keys of the
+    committed sweeps. Returns the launches."""
+    from waveverify_torch.effects.effects import codec_available
+    from waveverify_torch.eval import EVAL_CODECS, run_sweep
+
+    audio = sweep_inputs()
+    det = sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC)
+    loc = sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)
+    emb = sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC)
+    n_codecs = sum(codec_available(c) for c, _, _ in EVAL_CODECS)
+    total = 0
+    report["sweep"] = {}
+    for dname, wv in servers.items():
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        res = run_sweep(wv, audio, seed=0, include_codecs=True, serve_dtype=dname)
+        wall = time.perf_counter() - t0
+        n = rc.resblock_chain.launches
+        total += n
+        rows = [k for k in res if k != "_quality" and "status" not in res[k]]
+        want = emb + len(rows) * (3 * det + loc) + n_codecs * (det + loc)
+        if n != want:
+            raise AssertionError(f"sweep {dname}: {n} launches != {want}")
+        committed = json.loads((ROOT / SWEEP_REF[dname]).read_text())
+        lim_conf, lim_miou, lim_ber = SWEEP_LIMITS[dname]
+        deltas, vs_committed, failed = {}, {}, []
+        noisy = [t for t in rows if "random_noise" in t]
+        if sorted(set(rows) - set(noisy)) != sorted(JAX_CPU_SWEEP[dname]):
+            failed.append(f"rows {rows} are not the reference's and {noisy}")
+        for tag, ref in JAX_CPU_SWEEP[dname].items():
+            if tag not in res:
+                continue
+            d = {k: res[tag][k] - v for k, v in zip(SWEEP_KEYS, ref)}
+            deltas[tag] = d
+            vs_committed[tag] = {k: res[tag][k] - committed[tag][k] for k in SWEEP_KEYS}
+            for k, lim in zip(SWEEP_KEYS, (lim_conf, lim_miou, lim_ber, lim_ber)):
+                if not abs(d[k]) <= lim:
+                    failed.append(f"{tag}: {k} {res[tag][k]} vs {ref} (|delta| > {lim})")
+        # other noise than JAX's: the deltas to the committed sweep are
+        # printed, and only a metric outside [0, 1] fails
+        for tag in noisy:
+            vs_committed[tag] = {k: res[tag][k] - committed[tag][k] for k in SWEEP_KEYS}
+            failed += [f"{tag}: {k} = {v}" for k, v in res[tag].items()
+                       if k != "bit_acc_full" and not 0.0 <= v <= 1.0]
+        for codec, _, params in EVAL_CODECS:
+            tag = f"{codec}({params.get('bitrate', '')})".replace("()", "")
+            if "status" not in res.get(tag, {}) or "status" not in committed[tag]:
+                failed.append(f"{tag}: no status key")
+            deltas[tag] = {"status": res.get(tag, {}).get("status")}
+        q = {k: (res["_quality"][k], committed["_quality"][k]) for k in ("sisnr_db", "stoi")}
+        report["sweep"][dname] = {"launches": n, "first_run_s": wall, "rows": rows,
+                                  "deltas_vs_jax_cpu": deltas,
+                                  "deltas_vs_committed_tpu_sweep": vs_committed,
+                                  "quality_port_and_committed": q, "results": res}
+
+        def worst(table):
+            return {k: max((abs(d[k]) for t, d in table.items()
+                            if k in d and "random_noise" not in t), default=0.0)
+                    for k in SWEEP_KEYS}
+
+        print(f"sweep {dname}: {len(rows)} rows + {len(EVAL_CODECS)} codec rows "
+              f"({n_codecs} measured), {n} launches, {wall:.2f} s; worst |delta| on rows "
+              "without noise vs the JAX CPU run: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in worst(deltas).items())
+              + "; vs the committed TPU sweep: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in worst(vs_committed).items()))
+        for tag in noisy:
+            print(f"  {tag} vs the committed sweep: " + ", ".join(
+                f"{k} {v:+.4f}" for k, v in vs_committed[tag].items()))
+        for tag, d in deltas.items():
+            if "status" in d:
+                print(f"  {tag}: status {d['status']}")
+        print(f"  quality (port, committed): sisnr {q['sisnr_db'][0]:.4f} / "
+              f"{q['sisnr_db'][1]:.4f} dB, stoi {q['stoi'][0]:.5f} / {q['stoi'][1]:.5f}")
+        if failed:
+            raise AssertionError(f"sweep {dname} vs JAX: " + "; ".join(failed))
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -171,7 +482,7 @@ def main() -> int:
 
     from waveverify_torch import WaveVerify
     from waveverify_torch.ops import resblock_chain as rc
-    from waveverify_torch.serve import embed_detect, strict_f32
+    from waveverify_torch.serve import embed_detect, locate_probs, strict_f32
 
     report = {}
     t_start = time.perf_counter()
@@ -226,6 +537,9 @@ def main() -> int:
     # few n-tiles and idle warps; all of tile 0's halo is padding; batch 1
     shapes += [(2, 300, 32, 1), (2, 300, 48, 2), (2, 20, 96, 3), (2, 20, 768, 3),
                (1, 1000, 128, 2)]
+    # the locator's chains; a long-audio window's widest-T chains at batch 1
+    shapes += [(2, t, c, m) for t, c, m in LOC_ENC]
+    shapes += [(1, WINDOW, 32, 1), (1, WINDOW, 64, 2)]
     for i, (b, t, c, m) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
             x, ws, ps = chain_inputs(torch, b, t, c, m, i, dtype)
@@ -259,7 +573,7 @@ def main() -> int:
     if "--kernel-only" in sys.argv[1:]:
         return 0
 
-    # 4. main path
+    # 4. the paths; 4a: embed+detect
     r5 = ROOT / "weights" / "waveverify_demo_r5.npz"
     rng = np.random.RandomState(0)
     audio = (rng.randn(BATCH, CLIP) * 0.1).astype(np.float32)
@@ -320,6 +634,16 @@ def main() -> int:
         if not same:
             raise AssertionError(f"{dname}: bits differ from the CPU port")
 
+    # 4b-d: locate, long audio, the sweep; each sets the count to 0 and reads it
+    path_launches = {"embed_detect": main_path_launches,
+                     "locate": check_locate(rc, servers, cpu, audio, report),
+                     "long": check_long(rc, servers, report),
+                     "sweep": check_sweep(rc, servers, report)}
+    report["launches_by_path"] = path_launches
+    print(f"launches by path: {path_launches}")
+    if not all(path_launches.values()):
+        raise AssertionError("a path launched no kernel")
+
     # 5. times
     report["clips_per_s"] = {}
     for dname, wv in servers.items():
@@ -345,6 +669,48 @@ def main() -> int:
               f"{total_ms:.3f} device ms/call, chain kernel {chain_ms:.3f} ms; top: "
               + "; ".join(f"{k[:40]} {ms:.2f}" for k, ms in top[:4]))
 
+    # each time below is printed with the card it was taken on
+    card = card_line()
+    report["locate_clips_per_s"] = {}
+    for dname, wv in servers.items():
+        ms = cuda_time(torch, lambda: locate_probs(wv.models, a_dev, dname), 10)
+        report["locate_clips_per_s"][dname] = BATCH / (ms / 1e3)
+        print(f"locate {dname} batch {BATCH} x 1 s: {ms:.3f} ms/batch, "
+              f"{BATCH / (ms / 1e3):.2f} clips/s [{card}]")
+    report["long_seconds"] = {}
+    tmp, path, wm_id = long_clip()
+    with tmp:
+        for dname, wv in servers.items():
+            secs = run_long(wv, path, wm_id)[3]
+            report["long_seconds"][dname] = secs
+            print(f"long {dname}, one {LONG_SECONDS} s clip: " + ", ".join(
+                f"{k} {v:.3f} s (real-time factor {v / LONG_SECONDS:.5f})"
+                for k, v in secs.items()) + f" [{card}]")
+    from waveverify_torch.effects.effects import codec_available
+    from waveverify_torch.eval import EVAL_CODECS, run_sweep
+    from waveverify_torch.metrics import pesq, stoi
+
+    audio16 = sweep_inputs()
+    bits16 = np.random.RandomState(0).randint(0, 2, (16, 16)).astype(np.float32)
+    report["sweep_seconds"] = {}
+    for dname, wv in servers.items():
+        t0 = time.perf_counter()
+        run_sweep(wv, audio16, seed=0, include_codecs=True, serve_dtype=dname)
+        wall = time.perf_counter() - t0
+        # the sweep's host work, timed alone on the same clips
+        wm16 = wv.embed_batch(audio16, bits16)
+        t0 = time.perf_counter()
+        for i in range(len(audio16)):
+            stoi(wm16[i], audio16[i], CLIP)
+            pesq(wm16[i], audio16[i], CLIP)
+        for c, _, _ in EVAL_CODECS:
+            codec_available(c)
+        host = time.perf_counter() - t0
+        report["sweep_seconds"][dname] = {"wall": wall, "host_quality_and_codecs": host}
+        print(f"sweep {dname} (16 x 5 s, {len(EVAL_CODECS)} codec rows): {wall:.3f} s "
+              f"wall, of which host STOI/PESQ and codec probes {host:.3f} s "
+              f"({host / wall:.3f}) [{card}]")
+
     def bounds(flops, nbytes):
         """(FMA bound, bound, bound_by) in seconds: the f32 FMA rate the first
         kernel was held to, and the split-TF32 tensor-core rate it runs at now."""
@@ -366,8 +732,11 @@ def main() -> int:
     tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0,
            "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0}
     unique = list(dict.fromkeys(CHAINS))
-    for i, (t, c, m) in enumerate(unique):
+    loc_tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+    # embed+detect's shapes, then the locator's (not in the embed+detect sums)
+    for i, (t, c, m) in enumerate(unique + LOC_ENC):
         count = CHAINS.count((t, c, m))
+        path = "embed_detect" if count else "locate"
         x, ws, ps = chain_inputs(torch, BATCH, t, c, m, 100 + i, torch.float32)
         run_k = lambda: rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
         run_p = lambda: rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
@@ -385,7 +754,7 @@ def main() -> int:
         slab_rows = plan[0][0] * 8 + min(plan[0][1], t)
         regs, ctas = rc.kernel_info(c, slab_rows)
         nt, mt, _ = rc.product_tiling(c)
-        row = {"T": t, "C": c, "M": m, "per_call": count,
+        row = {"path": path, "T": t, "C": c, "M": m, "per_call": count or 1,
                "launches": len(plan), "plan": plan,
                "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e6,
                "fma_bound_us": fma_bound * 1e6, "bound_by": bound_by,
@@ -393,6 +762,11 @@ def main() -> int:
                "slab_rows": slab_rows, "registers": regs, "ctas_per_sm": ctas,
                "products_matmul_ms": {"f32": mm_f32, "tf32": mm_tf32}}
         rows.append(row)
+        if not count:
+            loc_tot["ms"] += ms_k
+            loc_tot["plain_ms"] += ms_p
+            loc_tot["flops"] += flops
+            loc_tot["bytes"] += nbytes
         tot["ms"] += count * ms_k
         tot["plain_ms"] += count * ms_p
         tot["flops"] += count * flops
@@ -400,17 +774,24 @@ def main() -> int:
         tot["matmul_f32_ms"] += count * mm_f32
         tot["matmul_tf32_ms"] += count * mm_tf32
         tot["err"] = max(tot["err"], err)
-        print(f"chain T={t} C={c} M={m} x{count}: kernel {ms_k:.3f} ms, plain "
+        print(f"chain ({path}) T={t} C={c} M={m} x{count or 1}: kernel {ms_k:.3f} ms, plain "
               f"{ms_p:.3f} ms, bound {bound * 1e6:.1f} us ({bound_by}; f32 FMA bound "
               f"{fma_bound * 1e6:.1f} us), {len(plan)} launch(es) {plan}; NT x MT "
               f"{nt} x {mt}, R {row['rows_per_pass']} of {slab_rows} slab rows, "
               f"{regs} registers, {ctas} CTA/SM; products alone by torch.matmul "
-              f"{mm_f32:.3f} ms f32, {mm_tf32:.3f} ms TF32", flush=True)
+              f"{mm_f32:.3f} ms f32, {mm_tf32:.3f} ms TF32 [{card}]", flush=True)
     report["chains_f32_batch64"] = rows
     print("library_ms: none (no single PyTorch call computes a resblock chain); "
           f"products_matmul_ms per embed+detect, informational: f32 "
           f"{tot['matmul_f32_ms']:.3f}, TF32 allowed {tot['matmul_tf32_ms']:.3f}")
 
+    loc_bound = bounds(loc_tot["flops"], loc_tot["bytes"])
+    report["locate_chains_batch64"] = {"ms": loc_tot["ms"], "plain_ms": loc_tot["plain_ms"],
+                                       "bound_ms": loc_bound[1] * 1e3,
+                                       "bound_by": loc_bound[2]}
+    print(f"chain kernel per batch-64 locate: {loc_tot['ms']:.3f} ms, plain "
+          f"{loc_tot['plain_ms']:.3f} ms, bound {loc_bound[1] * 1e3:.3f} ms "
+          f"({loc_bound[2]}) [{card}]")
     fma_bound, bound, bound_by = bounds(tot["flops"], tot["bytes"])
     print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms; bound "
           f"{bound * 1e3:.3f} ms ({TF32_PASSES} TF32 passes at "
@@ -420,7 +801,7 @@ def main() -> int:
         "route": "cuda",
         "source": "waveverify_torch/csrc/resblock_chain.cu",
         "replaces": "waveverify_tpu/ops/pallas_kernels.py:354",
-        "launches": main_path_launches,
+        "launches": sum(path_launches.values()),
         "max_abs_err": tot["err"],
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],

@@ -37,16 +37,23 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import waveverify_torch
-from waveverify_torch.config import DetectorConfig, GeneratorConfig, TrainConfig
+import waveverify_torch.eval
+import waveverify_torch.quality
+from waveverify_torch.config import (DetectorConfig, GeneratorConfig,
+                                     LocatorConfig, TrainConfig)
+from waveverify_torch.effects.effects import AudioEffects
+from waveverify_torch.metrics import ber, miou
 from waveverify_torch.models import WatermarkModels
-from waveverify_torch.serve import embed_detect
+from waveverify_torch.serve import embed_detect, locate_probs
+from waveverify_torch.train.data import SyntheticAudioDataset
 
 small = dict(dimension=32, channels_enc=8, kernel_size=5, last_kernel_size=5,
              residual_kernel_size=5, dilation_base=1, skip="identity",
              causal=True, encoder_l2norm=True, bias=True,
              spec_compression="log", zero_init=False, n_residual_enc=1)
 cfg = TrainConfig(generator=GeneratorConfig(channels_dec=12, n_residual_dec=1, **small),
-                  detector=DetectorConfig(output_dim=8, **small))
+                  detector=DetectorConfig(output_dim=8, **small),
+                  locator=LocatorConfig(output_dim=8, **small))
 models = WatermarkModels(cfg)
 gen = torch.Generator().manual_seed(0)
 with torch.no_grad():
@@ -58,6 +65,16 @@ msg = torch.from_numpy(rng.randint(0, 2, (2, 16)).astype(np.float32))
 w, p = embed_detect(models, audio, msg)
 assert w.shape == (2, 960) and p.shape == (2, 16)
 assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(p).all())
+loc = locate_probs(models, audio)
+assert loc.shape == (2, 960) and bool(torch.isfinite(loc).all())
+clip = torch.from_numpy(SyntheticAudioDataset(0.06, 16000, 0).batch(2))
+for name, kw in waveverify_torch.eval.EVAL_SINGLE:
+    y, _ = getattr(AudioEffects, name)(clip, None, None, **kw)
+    assert y.shape == clip.shape and bool(torch.isfinite(y).all()), name
+with torch.no_grad():
+    logits = models.apply_detector(w)
+assert 0.0 <= float(ber(logits, msg)) <= 1.0
+assert 0.0 <= float(miou(loc, torch.ones_like(loc))) <= 1.0
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -1,11 +1,10 @@
 """Model configuration for the PyTorch port.
 
-A copy of the generator and detector sections of
+A copy of the generator, detector and locator sections of
 ``waveverify_tpu/config.py`` (the JAX package is not imported), and
 :func:`apply_model_config`, which overlays the architecture snapshot a
 ``.npz`` checkpoint carries under ``__config__``. The serving path reads its
-config from that snapshot alone, so no YAML reader is needed; the
-snapshot's ``Locator`` section waits for the locator slice.
+config from that snapshot alone, so no YAML reader is needed.
 """
 
 from __future__ import annotations
@@ -116,11 +115,55 @@ class DetectorConfig:
 
 
 @dataclass(frozen=True)
+class LocatorConfig:
+    """Small SEANet encoder + presence-mask head (conf/base.yml
+    ``Locator``)."""
+
+    sample_rate: int = 16000
+    channels_audio: int = 1
+    dimension: int = 64
+    channels_enc: int = 32
+    n_fft_base: int = 64
+    n_residual_enc: int = 1
+    res_scale_enc: float = 0.5773502691896258
+    strides: Tuple[int, ...] = (8, 4)
+    activation: str = "ELU"
+    activation_alpha: float = 1.0
+    norm: str = "weight_norm"
+    kernel_size: int = 5
+    last_kernel_size: int = 5
+    residual_kernel_size: int = 5
+    dilation_base: int = 1
+    skip: str = "identity"
+    act_all: bool = False
+    expansion: int = 1
+    groups: int = -1
+    encoder_l2norm: bool = True
+    bias: bool = False
+    spec: str = "stft"
+    spec_compression: str = "log"
+    pad_mode: str = "constant"
+    causal: bool = True
+    zero_init: bool = False
+    inout_norm: bool = True
+    output_dim: int = 32
+    nbits: int = 16
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for s in self.strides:
+            out *= s
+        return out
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The model sections of the JAX package's ``TrainConfig``."""
 
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
     detector: DetectorConfig = field(default_factory=DetectorConfig)
+    locator: LocatorConfig = field(default_factory=LocatorConfig)
 
 
 def _build(cls, section: Dict[str, Any]):
@@ -144,5 +187,8 @@ def apply_model_config(cfg: TrainConfig, snap: Dict[str, Any]) -> TrainConfig:
     if snap.get("Detector"):
         out = dataclasses.replace(
             out, detector=_build(DetectorConfig, snap["Detector"]))
+    if snap.get("Locator"):
+        out = dataclasses.replace(
+            out, locator=_build(LocatorConfig, snap["Locator"]))
     return out
 

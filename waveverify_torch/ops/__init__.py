@@ -1,1 +1,2 @@
-"""Hand-written kernels of the PyTorch port."""
+"""Hand-written kernels of the PyTorch port, and the signal processing
+(FIR filters, resampling) its effects use."""

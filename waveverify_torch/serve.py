@@ -1,5 +1,6 @@
-"""The embed+detect serving program (counterpart of ``bench.py``'s
-``_build``), and the device and precision rules every entry point shares.
+"""The serving programs (embed+detect, the counterpart of ``bench.py``'s
+``_build``, and the locator's presence probabilities), and the device and
+precision rules every entry point shares.
 
 dtype rules, as in the JAX package: the network activations run in
 ``act_dtype``; the clean audio and the watermarked sum stay f32 (the
@@ -61,3 +62,12 @@ def embed_detect(models, audio: torch.Tensor, msg: torch.Tensor,
     logits = models.apply_detector(watermarked.to(act))
     bit_probs = torch.mean(torch.sigmoid(logits.float()), dim=1)
     return watermarked, bit_probs
+
+
+@torch.no_grad()
+def locate_probs(models, audio: torch.Tensor,
+                 act_dtype: str = "float32") -> torch.Tensor:
+    """audio ``[B, T]`` f32 -> per-sample watermark-presence probabilities
+    ``[B, T]`` f32: sigmoid of the locator's f32 logits."""
+    logits = models.apply_locator(audio.to(resolve_dtype(act_dtype)))
+    return torch.sigmoid(logits.float())
