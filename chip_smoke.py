@@ -27,7 +27,21 @@ Phases, each fatal on failure:
      the long-audio path's seconds and real-time factor, the sweep's wall
      seconds with its host share, and per chain shape the kernel, the plain
      version, the bound, the product's rows per pass, registers and CTAs
-     per SM, and the chain's C x C products alone through torch.matmul.
+     per SM, and the chain's C x C products alone through torch.matmul;
+  6. training at TrainConfig() (conf/base.yml, full width), f32 with TF32
+     off: at each of its 10 chain shapes, the kernel's autograd Function
+     inside torch.utils.checkpoint against the plain version's gradients
+     under autograd; one step at batch 2 on the card against the same step
+     of the port on the CPU (losses, gradient norms, every parameter's
+     gradient, parameters after the step), its chain launches asserted
+     (2 x 20 with remat); the training CLI's entry point for 20 steps at
+     batch 32 x 1 s with one validation, its launches asserted, the losses
+     finite, every network's gradient norm positive, each network moved
+     beyond weight decay's share, and its weights serving embed+detect
+     through WaveVerify; ms per step and
+     clips/s, peak memory with and without remat, the split of a step,
+     the host's work per step, the chains' plain backward, the losses'
+     STFTs, and a profile of 3 steps.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -468,6 +482,479 @@ def check_sweep(rc, servers, report):
     return total
 
 
+TRAIN_BATCH = 32
+# the chains of one training forward: generator, detector (on the attacked
+# audio), locator
+TRAIN_CHAINS = GEN_ENC + GEN_DEC + DET_ENC + LOC_ENC
+TRAIN_LR = 1e-4  # conf/base.yml AdamW.lr
+CLI_STEPS = 20
+TRAIN_NETS = ("generator", "detector", "locator", "discriminator")
+# ResblockChainFn under checkpoint against the plain version under
+# autograd: both differentiate the plain version at the same inputs, so only
+# the order of the card's reductions may part them (relative norm, per leaf)
+CHAIN_GRAD_TOL = 1e-5
+# one full-width step, card against CPU: the gradient norms (relative; the
+# readings on the H100 are 2.6e-05 or less), and each network's worst leaf
+# by the relative norm of the difference, about four times the H100's
+# readings (generator 1.07e-02, detector 3.5e-04, locator 6.2e-05,
+# discriminator 5.2e-03): the spec blocks' log-STFT features and the
+# gradient penalty amplify f32 rounding at random init. A gradient that is
+# missing, detached or of the wrong sign is off by about 1.
+TRAIN_NORM_TOL = 1e-3
+TRAIN_GRAD_TOL = {"generator": 5e-2, "detector": 2e-3, "locator": 3e-4,
+                  "discriminator": 2e-2}
+
+
+def train_batch(cfg, bank, b, step):
+    """Host inputs of training step ``step`` at batch b: synthetic 1 s
+    clips, messages, the scheduler's bank indices and the step's draws (all
+    from seeds, on the CPU)."""
+    import numpy as np
+
+    from waveverify_torch.effects.scheduler import EffectScheduler
+    from waveverify_torch.train.data import SyntheticAudioDataset, generate_random_message
+    from waveverify_torch.train.loop import step_generator
+    from waveverify_torch.train.watermarking import draw
+
+    audio = SyntheticAudioDataset(cfg.train_duration, CLIP, step).batch(b)
+    msg = generate_random_message(np.random.RandomState(step), b)
+    idx, _ = EffectScheduler(rng=np.random.RandomState(step)).select_bank_indices(
+        b, bank.specs)
+    d = draw(step_generator(cfg.seed, step), b, audio.shape[1],
+             len(bank.noise_branches))
+    return audio, msg, idx, d
+
+
+def run_train_step(torch, state, cfg, bank, batch, device):
+    from waveverify_torch.train.step import train_step
+
+    audio, msg, idx, d = batch
+    return train_step(state, cfg, bank, torch.tensor(audio, device=device),
+                      torch.tensor(msg, device=device), idx, d.to(device))
+
+
+def check_chain_grads(torch, rc, report):
+    """Training 0: at every chain shape of a training forward (batch 2),
+    the kernel's autograd Function inside torch.utils.checkpoint, as the
+    trainer's remat runs it (the weights stacked inside the segment),
+    against the plain version under autograd: the gradients of the input
+    and of each block's six weights. The kernel must run twice per chain,
+    forward and recompute."""
+    from torch.utils.checkpoint import checkpoint
+
+    worst = {}
+    shapes = sorted(set(TRAIN_CHAINS), key=TRAIN_CHAINS.index)
+    for i, (t, c, m) in enumerate(shapes):
+        x, ws, ps = chain_inputs(torch, 2, t, c, m, 300 + i, torch.float32)
+        x.requires_grad_(True)
+        flat = [w[j].clone().requires_grad_(True) for j in range(m) for w in ws]
+        leaves = [x] + flat
+        r = torch.randn(x.shape, generator=torch.Generator().manual_seed(i)).cuda()
+
+        def fused(x, *flat):
+            slots = [flat[6 * j:6 * j + 6] for j in range(m)]
+            return rc.fused_resblock_chain(
+                x, rc.stack_chain_weights(slots, x.dtype), prescales=ps,
+                res_scale=RES_SCALE)
+
+        before = rc.resblock_chain.launches
+        y = checkpoint(fused, x, *flat, use_reentrant=False)
+        g_k = torch.autograd.grad((y * r).sum(), leaves)
+        launches = rc.resblock_chain.launches - before
+        if launches != 2 * rc.launches_per_chain(c, m):
+            raise AssertionError(f"chain T={t} C={c} M={m} under checkpoint: "
+                                 f"{launches} launches, expected 2 x "
+                                 f"{rc.launches_per_chain(c, m)}")
+        stacked = [torch.stack(flat[k::6]) for k in range(6)]
+        y_ref = rc.resblock_chain_ref(x, *stacked, prescales=ps,
+                                      res_scale=RES_SCALE)
+        g_r = torch.autograd.grad((y_ref * r).sum(), leaves)
+        dev = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                  for a, b in zip(g_k, g_r))
+        worst[f"T={t} C={c} M={m}"] = dev
+    report["chain_grads_under_checkpoint"] = worst
+    print(f"chain gradients under checkpoint vs plain under autograd, "
+          f"{len(worst)} training shapes at batch 2: worst leaf rel dev "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+          + f" (limit {CHAIN_GRAD_TOL:.0e})")
+    bad = {k: v for k, v in worst.items() if not v <= CHAIN_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"chain gradients under checkpoint: {bad}")
+
+
+def check_train_step(torch, rc, report):
+    """Training a: one step at full width (TrainConfig(), batch 2 x 16000)
+    on the card against the same step of the port on the CPU, from the
+    same seed-0 parameters and draws, f32 with TF32 off: the losses, the
+    gradient norms, every parameter's gradient and every parameter after
+    the step. Returns the launches of the card's step."""
+    import dataclasses
+
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.train.state import create_train_state
+
+    cfg = dataclasses.replace(TrainConfig(), batch_size=2)
+    bank = EffectBank.default_train_bank()
+    batch = train_batch(cfg, bank, 2, 0)
+    states, metrics = {}, {}
+    for dev in ("cpu", "cuda"):
+        states[dev] = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                         torch.device(dev))
+        t0 = time.perf_counter()
+        rc.resblock_chain.launches = 0
+        metrics[dev] = run_train_step(torch, states[dev], cfg, bank, batch, dev)
+        torch.cuda.synchronize()
+        report.setdefault("train_step_check", {})[f"{dev}_s"] = time.perf_counter() - t0
+    launches = rc.resblock_chain.launches
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    if launches != per_step:
+        raise AssertionError(f"train step launched {launches} chain kernels, "
+                             f"expected {per_step} (remat: 2 x the forward's)")
+    card = card_line()
+    cpu, gpu = metrics["cpu"], {k: v.cpu() for k, v in metrics["cuda"].items()}
+    # each network's worst leaf: the gradient the step left (the generator's
+    # and discriminator's after their clip), card against CPU
+    grad_dev = {}
+    for net in TRAIN_NETS:
+        ref = dict(getattr(states["cpu"].models, net).named_parameters())
+        devs = {}
+        for n, p in getattr(states["cuda"].models, net).named_parameters():
+            g, g_ref = p.grad, ref[n].grad
+            if g is None or g_ref is None:
+                raise AssertionError(f"train step {net}.{n}: no gradient")
+            devs[n] = float((g.cpu() - g_ref).norm() / g_ref.norm().clamp_min(1e-30))
+        worst = max(devs, key=devs.get)
+        grad_dev[net] = (worst, devs[worst])
+    rel = {k: abs(float(gpu[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-12)
+           for k, v in cpu.items() if v.dim() == 0}
+    # Adam's first step moves a parameter by lr * g / (|g| + eps): a gradient
+    # sign the two sides round apart costs up to 2 lr, plus the rounding of
+    # p +- lr in f32
+    worst_param, param_limit = {}, {}
+    for net in TRAIN_NETS:
+        a = dict(getattr(states["cpu"].models, net).named_parameters())
+        worst_param[net] = max(
+            float((p.detach().cpu() - a[n].detach()).abs().max())
+            for n, p in getattr(states["cuda"].models, net).named_parameters())
+        p_max = max(float(p.detach().abs().max()) for p in a.values())
+        param_limit[net] = 2 * TRAIN_LR + 2 * torch.finfo(torch.float32).eps * p_max
+    report["train_step_check"].update({"rel_dev": rel, "grad_dev": grad_dev,
+                                       "max_param_dev": worst_param,
+                                       "launches": launches})
+    print(f"train step, card vs CPU (TrainConfig(), batch 2 x {CLIP}, f32, TF32 "
+          f"off): {launches} chain launches; rel dev " + ", ".join(
+              f"{k} {v:.2e}" for k, v in rel.items())
+          + "; worst leaf's gradient rel dev " + ", ".join(
+              f"{k} {v[1]:.2e} ({v[0]}, limit {TRAIN_GRAD_TOL[k]:.0e})"
+              for k, v in grad_dev.items())
+          + "; max |param dev| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst_param.items())
+          + f" (lr {TRAIN_LR}) [{card}]")
+    for k, v in rel.items():
+        if k in ("train/ber", "train/miou"):
+            # thresholded decisions: two of the 32 bits, 1e-3 of MIoU
+            dev = abs(float(gpu[k]) - float(cpu[k]))
+            limit = 2 / 32 if k == "train/ber" else 1e-3
+            if not dev <= limit:
+                raise AssertionError(f"train step {k}: card vs CPU {dev} > {limit}")
+            continue
+        limit = TRAIN_NORM_TOL if k.startswith("grad_norm/") else 1e-4
+        if not v <= limit:
+            raise AssertionError(f"train step {k}: card vs CPU rel dev {v} > {limit}")
+    for net, (name, v) in grad_dev.items():
+        if not v <= TRAIN_GRAD_TOL[net]:
+            raise AssertionError(f"train step {net}.{name}: gradient card vs CPU "
+                                 f"rel dev {v} > {TRAIN_GRAD_TOL[net]}")
+    for net, v in worst_param.items():
+        if not v <= param_limit[net]:
+            raise AssertionError(f"train step {net}: param dev {v} > "
+                                 f"{param_limit[net]} (2 lr and f32 rounding)")
+    return launches
+
+
+def check_train_cli(torch, rc, report):
+    """Training b: ``python -m waveverify_torch.train``'s entry point at
+    TrainConfig() (conf/base.yml: full width, batch 32 x 1 s) for
+    CLI_STEPS steps, validating once at the end; the losses stay finite,
+    every network's gradient norm is positive at every step and each
+    network moves further than weight decay alone would move it, and the
+    saved weights serve embed+detect through WaveVerify on the card.
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.train.__main__ import main as train_main
+    from waveverify_torch.train.state import WEIGHT_DECAY, create_train_state
+
+    cfg = TrainConfig()
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    det = sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC)
+    det_loc = det + sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)
+    gen = sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC)
+    # the steps, one validation (generator, then detector and locator per
+    # effect of the 8-row sweep) and one sample dump (generator)
+    expected = CLI_STEPS * per_step + gen + 8 * det_loc + gen
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        train_main(["--max-steps", str(CLI_STEPS), "--ckpt-dir", tmp,
+                    "--log-every", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rc.resblock_chain.launches
+        lines = [json.loads(x) for x in
+                 (Path(tmp) / "train_log.jsonl").read_text().splitlines()]
+        steps = [r for r in lines if "loss" in r]
+        vals = [r for r in lines if "val/loss" in r]
+        state = torch.load(Path(tmp) / "latest" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        init = create_train_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                                  torch.device("cpu")).models.state_dict()
+        # how far each network moved beyond what weight decay alone gives
+        # (|p| shrinks by at most steps x lr x wd x |p|): Adam moves a
+        # parameter with a gradient by about lr a step
+        decay = CLI_STEPS * TRAIN_LR * WEIGHT_DECAY * max(
+            1.0, cfg.optim.generator_lr_mult, cfg.optim.detector_lr_mult)
+        moved = {net: max(float(((state["models"][k] - v).abs()
+                                 - decay * v.abs()).max())
+                          for k, v in init.items() if k.startswith(net + "."))
+                 for net in TRAIN_NETS}
+        wv = WaveVerify(Path(tmp) / "latest" / "weights.npz", device="cuda")
+        rng = np.random.RandomState(1)
+        audio = (rng.randn(4, CLIP) * 0.1).astype(np.float32)
+        bits = rng.randint(0, 2, (4, 16)).astype(np.float32)
+        rc.resblock_chain.launches = 0
+        wm = wv.embed_batch(audio, bits)
+        _, conf = wv.detect_batch(wm)
+        served = rc.resblock_chain.launches
+    card = card_line()
+    report["train_cli"] = {"steps": len(steps), "wall_s": wall, "launches": launches,
+                           "expected_launches": expected, "moved": moved,
+                           "first": steps[0], "last": steps[-1], "val": vals,
+                           "serve_launches": served}
+    print(f"train CLI at TrainConfig() (batch {cfg.batch_size} x 1 s), {len(steps)} "
+          f"steps + 1 validation in {wall:.1f} s: {launches} chain launches "
+          f"(expected {expected}); loss {steps[0]['loss']:.2f} -> {steps[-1]['loss']:.2f}, "
+          f"step_time last {steps[-1]['step_time']:.3f} s, val/loss "
+          f"{vals[-1]['val/loss']:.4f}; max |param change| beyond weight decay's "
+          + ", ".join(f"{k} {v:.2e}" for k, v in moved.items())
+          + f"; its weights served embed+detect ({served} launches) [{card}]")
+    if len(steps) != CLI_STEPS or len(vals) != 1:
+        raise AssertionError(f"train CLI logged {len(steps)} steps, {len(vals)} validations")
+    for r in lines:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train CLI: non-finite {bad} at step {r['step']}")
+    if launches != expected:
+        raise AssertionError(f"train CLI: {launches} launches, expected {expected}")
+    for net in TRAIN_NETS:
+        norms = [r[f"grad_norm/{net}"] for r in steps]
+        if not min(norms) > 0:
+            raise AssertionError(f"train CLI: {net} gradient norms {norms}")
+        if not moved[net] > TRAIN_LR:
+            raise AssertionError(f"train CLI: {net} moved {moved[net]} beyond "
+                                 f"weight decay's share, not more than lr")
+    if not (np.isfinite(wm).all() and np.isfinite(conf).all()) or served != gen + det:
+        raise AssertionError("train CLI: its weights did not serve embed+detect")
+    return launches
+
+
+def time_training(torch, rc, report):
+    """Training c: times at TrainConfig() (batch 32 x 1 s): ms per step
+    (CUDA events, median of 5 after 3 warm-up steps), peak memory with and
+    without remat, the split of a step, the host's share, the plain chain
+    backward, the losses' STFTs and a profile of 3 steps."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.losses import mel_spectrogram_loss, multi_scale_stft_loss
+    from waveverify_torch.train import step as st
+    from waveverify_torch.train.loop import _feed_scheduler
+    from waveverify_torch.train.state import create_train_state
+
+    card = card_line()
+    out = {}
+    bank = EffectBank.default_train_bank()
+    for remat in (True, False):
+        cfg = dataclasses.replace(TrainConfig(), remat=remat)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                   torch.device("cuda"))
+        batches = [train_batch(cfg, bank, TRAIN_BATCH, i) for i in range(8)]
+        ms = []
+        for i, batch in enumerate(batches):
+            if i == 3:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            rc.resblock_chain.launches = 0
+            e0.record()
+            run_train_step(torch, state, cfg, bank, batch, "cuda")
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append(e0.elapsed_time(e1))
+        med = statistics.median(ms)
+        out[f"remat_{remat}"] = {"ms_per_step": med, "ms": ms,
+                                 "clips_per_s": TRAIN_BATCH / (med / 1e3),
+                                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                 "launches_per_step": rc.resblock_chain.launches}
+        print(f"train step remat={remat} batch {TRAIN_BATCH} x 1 s: median "
+              f"{med:.3f} ms of {['%.1f' % x for x in ms]}, "
+              f"{TRAIN_BATCH / (med / 1e3):.2f} clips/s, peak memory "
+              f"{out[f'remat_{remat}']['peak_mem_gib']:.2f} GiB over 5 steps, "
+              f"{rc.resblock_chain.launches} chain launches per step [{card}]")
+        if remat:
+            keep = state, cfg, batches
+        del state
+        torch.cuda.empty_cache()
+    state, cfg, batches = keep
+
+    # the split of a step, timed apart (train_step's pieces, in its order)
+    split = {"forward": [], "disc_update": [], "gen_loss_backward": [],
+             "optimizer": []}
+    for batch in batches[:4]:
+        audio_np, msg_np, idx, d = batch
+        audio = torch.tensor(audio_np, device="cuda")
+        msg = torch.tensor(msg_np, device="cuda")
+        d = d.to("cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        outs = st.forward(state, cfg, bank, audio, msg, idx, d)
+        ev[1].record()
+        st.discriminator_update(state, cfg, outs["residual"], audio, d.gp_alpha)
+        ev[2].record()
+        logs = st.generator_losses(state, cfg, outs, audio, msg)
+        state.wm_opt.zero_grad(set_to_none=False)
+        logs["loss"].backward()
+        ev[3].record()
+        torch.nn.utils.clip_grad_norm_(state.models.generator.parameters(),
+                                       st.MAX_GRADIENT_NORM)
+        state.wm_opt.step()
+        state.wm_sched.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for j, k in enumerate(split):
+            split[k].append(ev[j].elapsed_time(ev[j + 1]))
+    out["split_ms"] = {k: statistics.median(v[1:]) for k, v in split.items()}
+    print("train step split (median of 3, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["split_ms"].items()) + f" [{card}]")
+
+    # host work per step: data, scheduler selection and feedback, draws
+    from waveverify_torch.effects.scheduler import EffectScheduler
+    from waveverify_torch.train.data import SyntheticAudioDataset, generate_random_message
+    from waveverify_torch.train.loop import step_generator
+    from waveverify_torch.train.watermarking import draw
+
+    ds = SyntheticAudioDataset(1.0, CLIP, 0)
+    sched = EffectScheduler(rng=np.random.RandomState(1))
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    for i in range(10):
+        ds.batch(TRAIN_BATCH)
+        generate_random_message(rng, TRAIN_BATCH)
+        _, sel = sched.select_bank_indices(TRAIN_BATCH, bank.specs)
+        draw(step_generator(0, i), TRAIN_BATCH, CLIP, len(bank.noise_branches))
+        _feed_scheduler(sched, {"per_sample_ber": rng.rand(TRAIN_BATCH),
+                                "per_sample_miou": rng.rand(TRAIN_BATCH)}, sel)
+    out["host_ms_per_step"] = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"train host work per step (data, scheduler, draws): "
+          f"{out['host_ms_per_step']:.3f} ms [{card}]")
+
+    # the chains' plain backward at the step's shapes, alone
+    plain = 0.0
+    for i, (t, c, m) in enumerate(TRAIN_CHAINS):
+        x, ws, ps = chain_inputs(torch, TRAIN_BATCH, t, c, m, 200 + i, torch.float32)
+        leaves = [x] + ws
+        for v in leaves:
+            v.requires_grad_(True)
+        g = torch.randn_like(x)
+
+        def back():
+            y = rc.resblock_chain_ref(*leaves, prescales=ps, res_scale=RES_SCALE)
+            torch.autograd.grad(y, leaves, g)
+
+        plain += cuda_time(torch, back, 3)
+    out["plain_chain_backward_ms_per_step"] = plain
+    print(f"train: the {len(TRAIN_CHAINS)} chains' plain backward (recompute + "
+          f"autograd) at batch {TRAIN_BATCH}: {plain:.3f} ms per step [{card}]")
+
+    # the losses' STFTs: multi-scale STFT and mel losses, forward + backward
+    w = torch.tensor(batches[0][0], device="cuda").requires_grad_(True)
+    a = torch.tensor(batches[1][0], device="cuda")
+    lc = cfg.loss
+
+    def stft_losses():
+        loss = (multi_scale_stft_loss(w, a, window_lengths=lc.stft_window_lengths)
+                + mel_spectrogram_loss(w, a, n_mels=lc.mel_n_mels,
+                                       window_lengths=lc.mel_window_lengths))
+        torch.autograd.grad(loss, w)
+
+    out["stft_losses_ms"] = cuda_time(torch, stft_losses, 5)
+    print(f"train: STFT and mel losses, forward + backward at batch {TRAIN_BATCH}: "
+          f"{out['stft_losses_ms']:.3f} ms per step [{card}]")
+
+    # a profile of 3 steps
+    run_train_step(torch, state, cfg, bank, batches[0], "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[1:4]:
+            run_train_step(torch, state, cfg, bank, batch, "cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel, span_us = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key == rc.BACKWARD_RANGE:
+            # the named range's span on the device, not a kernel
+            span_us += e.self_device_time_total
+            continue
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    chain_ms = sum(us for k, us in top if "resblock_chain" in k) / 3 / 1e3
+    # kernels by kind: cuDNN / cuBLAS convolutions and GEMMs, elementwise
+    # and reductions, the rest
+    kinds = {"conv_gemm": ("conv", "gemm", "xmma", "dgrad", "wgrad", "cutlass"),
+             "elementwise_reduce": ("elementwise", "reduce", "vectorized")}
+    by_kind = {k: 0.0 for k in list(kinds) + ["other"]}
+    for k, us in top:
+        if "resblock_chain" in k:
+            continue
+        kind = next((n for n, keys in kinds.items()
+                     if any(x in k.lower() for x in keys)), "other")
+        by_kind[kind] += us / 3 / 1e3
+    out["profile"] = {
+        "busy_share": busy / wall_us, "device_ms_per_step": busy / 3 / 1e3,
+        "wall_ms_per_step": wall_us / 3 / 1e3,
+        "chain_kernel_ms_per_step": chain_ms, "by_kind_ms_per_step": by_kind,
+        "plain_backward_range_ms_per_step": span_us / 3 / 1e3,
+        "top": [(k[:90], us / 3 / 1e3) for k, us in top[:15]]}
+    p = out["profile"]
+    print(f"train profile (3 steps): busy {p['busy_share']:.3f} of the window "
+          f"({p['wall_ms_per_step']:.3f} ms/step under the profiler), "
+          f"{p['device_ms_per_step']:.3f} device ms/step, chain kernel "
+          f"{chain_ms:.3f} ms/step, plain chain backward range "
+          f"{p['plain_backward_range_ms_per_step']:.3f} ms/step (its span); other "
+          "kernels by kind " + ", ".join(f"{k} {v:.2f}" for k, v in by_kind.items())
+          + "; top: "
+          + "; ".join(f"{k[:40]} {v:.2f}" for k, v in p["top"][:6]) + f" [{card}]")
+    report["train_timing"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -796,6 +1283,15 @@ def main() -> int:
     print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms; bound "
           f"{bound * 1e3:.3f} ms ({TF32_PASSES} TF32 passes at "
           f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); f32 FMA bound {fma_bound * 1e3:.3f} ms")
+    # 6. training: the chain's gradients under checkpoint, one step on the
+    # card against the CPU, the CLI's run, times
+    check_chain_grads(torch, rc, report)
+    path_launches["train_step"] = check_train_step(torch, rc, report)
+    path_launches["train_cli"] = check_train_cli(torch, rc, report)
+    time_training(torch, rc, report)
+    report["launches_by_path"] = path_launches
+    print(f"launches by path: {path_launches}")
+
     kernels = {"kernels": [{
         "name": "resblock_chain",
         "route": "cuda",

@@ -75,6 +75,26 @@ with torch.no_grad():
     logits = models.apply_detector(w)
 assert 0.0 <= float(ber(logits, msg)) <= 1.0
 assert 0.0 <= float(miou(loc, torch.ones_like(loc))) <= 1.0
+# training: one step of the tiny config, imports and all
+import waveverify_torch.losses
+import waveverify_torch.train.__main__
+import waveverify_torch.train.checkpoint
+import waveverify_torch.train.loop
+from waveverify_torch.config import DiscriminatorConfig, LossConfig
+from waveverify_torch.effects.effects import DEFAULT_TRAIN_EFFECTS, EffectBank
+from waveverify_torch.train.state import create_train_state
+from waveverify_torch.train.step import train_step
+from waveverify_torch.train.watermarking import draw
+import dataclasses
+tcfg = dataclasses.replace(
+    cfg, discriminator=DiscriminatorConfig(periods=(2,), fft_sizes=(256,)),
+    loss=LossConfig(stft_window_lengths=(256,), mel_n_mels=(5,),
+                    mel_window_lengths=(128,)))
+state = create_train_state(tcfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+bank = EffectBank(DEFAULT_TRAIN_EFFECTS)
+d = draw(torch.Generator().manual_seed(1), 2, 960, len(bank.noise_branches))
+m = train_step(state, tcfg, bank, audio, msg, np.array([0, 8]), d)
+assert bool(torch.isfinite(m["loss"])) and state.step == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

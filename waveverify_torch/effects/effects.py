@@ -1,11 +1,13 @@
-"""The audio effects of the robustness sweep (counterpart of the matching
-part of ``waveverify_tpu/effects/effects.py``).
+"""The audio effects of the robustness sweep and of the training bank
+(counterpart of the matching part of ``waveverify_tpu/effects/effects.py``).
 
 Every effect maps ``(audio [B, T], mask [B, T] or None, generator,
 **params) -> (audio, mask)`` at the same length T, on the audio's device.
 ``generator`` is a ``torch.Generator`` on that device; only
 ``random_noise`` draws from it, so its realisation differs from the JAX
 package's (other bits from another generator) while its statistics match.
+:class:`EffectBank` runs the training branches with their noise drawn
+beforehand, so a training step can be replayed exactly.
 
 The host codecs (mp3, aac) round-trip through ``ffmpeg`` when it is on
 ``PATH``. Encodec needs model weights the repository does not hold, so it
@@ -15,7 +17,8 @@ is reported unavailable.
 from __future__ import annotations
 
 import wave
-from typing import Optional, Tuple
+from functools import partial
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,13 +116,15 @@ class AudioEffects:
 
     @staticmethod
     def random_noise(audio, mask=None, generator=None, noise_std: float = 0.001,
-                     **kw):
-        """Additive white Gaussian noise drawn from ``generator`` (a fresh
+                     noise: Optional[torch.Tensor] = None, **kw):
+        """Additive white Gaussian noise: ``noise`` (unit variance, the
+        audio's shape) when given, else drawn from ``generator`` (a fresh
         one seeded 0 on the audio's device when None)."""
-        if generator is None:
-            generator = torch.Generator(device=audio.device).manual_seed(0)
-        noise = torch.randn(audio.shape, generator=generator, dtype=audio.dtype,
-                            device=audio.device)
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device=audio.device).manual_seed(0)
+            noise = torch.randn(audio.shape, generator=generator,
+                                dtype=audio.dtype, device=audio.device)
         return audio + noise_std * noise, mask
 
     # -- host codecs -------------------------------------------------------------
@@ -200,3 +205,102 @@ def codec_available(codec: str) -> bool:
     if codec in ("mp3", "aac"):
         return shutil.which("ffmpeg") is not None
     return False
+
+
+def apply_effect(audio: torch.Tensor, effect_name: str, mask: Mask = None,
+                 generator: Optional[torch.Generator] = None,
+                 **params) -> Tuple[torch.Tensor, Mask]:
+    """One effect by name on ``[T]`` or ``[B, T]`` audio, the shape kept."""
+    fn = getattr(AudioEffects, effect_name, None)
+    if fn is None:
+        raise ValueError(f"unknown effect: {effect_name}")
+    if audio.dim() == 1:
+        y, m = fn(audio[None], None if mask is None else mask[None],
+                  generator, **params)
+        return y[0], None if m is None else m[0]
+    return fn(audio, mask, generator, **params)
+
+
+# noise effects take their noise as an argument inside the bank
+_NOISE_EFFECTS = ("random_noise",)
+
+
+class EffectBank:
+    """The training attacks: a fixed list of (effect, params) branches, one
+    chosen per sample by index.
+
+    :meth:`apply` runs each branch only on the samples that chose it. It
+    gives what the JAX package's "stack" dispatch gives (every branch on
+    the whole batch, each sample taking its own row), since every branch
+    acts on each row alone; a noise branch's noise is drawn beforehand for
+    the whole batch, ``[len(noise_branches), B, T]``, and each sample takes
+    its own row of it."""
+
+    def __init__(self, effects: Sequence[Tuple[str, Dict]],
+                 sample_rate: int = DEFAULT_SAMPLE_RATE):
+        self.specs: List[Tuple[str, Dict]] = [
+            (name, dict(params)) for name, params in effects]
+        self.sample_rate = sample_rate
+        self._fns = []
+        for name, params in self.specs:
+            fn = getattr(AudioEffects, name, None)
+            if fn is None:
+                raise ValueError(f"effect {name!r} is not ported")
+            kw = dict(params)
+            kw.setdefault("sample_rate", sample_rate)
+            self._fns.append(partial(fn, **kw))
+        self.noise_branches = [i for i, (name, _) in enumerate(self.specs)
+                               if name in _NOISE_EFFECTS]
+
+    def __len__(self) -> int:
+        return len(self.specs)
+
+    def apply(self, audio: torch.Tensor, mask: torch.Tensor, effect_idx,
+              noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """audio, mask ``[B, T]``; effect_idx ``[B]`` branch indices (host
+        numpy or a CPU tensor: the grouping is done on the host);
+        noise ``[len(noise_branches), B, T]`` unit normal, on the audio's
+        device."""
+        idx = np.asarray(torch.as_tensor(effect_idx).cpu())
+        out_a, out_m = audio, mask
+        for e in np.unique(idx):
+            rows = torch.from_numpy(np.flatnonzero(idx == e)).to(audio.device)
+            kw = {}
+            if e in self.noise_branches:
+                kw["noise"] = noise[self.noise_branches.index(e)][rows]
+            a, m = self._fns[e](audio[rows], mask[rows], None, **kw)
+            out_a = out_a.index_put((rows,), a)
+            if m is not None:
+                out_m = out_m.index_put((rows,), m.to(mask.dtype))
+        return out_a, out_m
+
+    @classmethod
+    def default_train_bank(cls, sample_rate: int = DEFAULT_SAMPLE_RATE
+                           ) -> "EffectBank":
+        """The conf/effects_config.yml train_effects list."""
+        return cls(DEFAULT_TRAIN_EFFECTS, sample_rate)
+
+
+# conf/effects_config.yml train_effects and eval_effects
+DEFAULT_TRAIN_EFFECTS: List[Tuple[str, Dict]] = [
+    ("identity", {}),
+    ("highpass_filter", {"cutoff_freq": 500}),
+    ("highpass_filter", {"cutoff_freq": 3500}),
+    ("lowpass_filter", {"cutoff_freq": 1000}),
+    ("lowpass_filter", {"cutoff_freq": 2000}),
+    ("bandpass_filter", {"cutoff_freq_low": 300, "cutoff_freq_high": 4000}),
+    ("speed", {"speed": 0.8}),
+    ("resample", {"new_sample_rate": 32000}),
+    ("random_noise", {"noise_std": 0.001}),
+]
+
+DEFAULT_EVAL_EFFECTS: List[Tuple[str, Dict]] = [
+    ("identity", {}),
+    ("time_shift", {"shift": 161}),
+    ("resample", {"new_sample_rate": 32000}),
+    ("speed", {"speed": 0.8}),
+    ("random_noise", {"noise_std": 0.001}),
+    ("lowpass_filter", {"cutoff_freq": 2000}),
+    ("highpass_filter", {"cutoff_freq": 3500}),
+    ("bandpass_filter", {"cutoff_freq_low": 300, "cutoff_freq_high": 4000}),
+]

@@ -64,21 +64,6 @@ def _effect_tag(chain: Sequence[Tuple[str, Dict]]) -> str:
     return " + ".join(parts)
 
 
-def set_conv_precision(name: str) -> None:
-    """``highest``: f32 convolutions and matmuls in f32 (TF32 off for cuDNN
-    and cuBLAS); ``high`` / ``default``: TF32 allowed for both. A
-    process-wide PyTorch setting; the resblock-chain kernel ignores it."""
-    from waveverify_torch.serve import strict_f32
-
-    if name == "highest":
-        strict_f32()
-    elif name in ("high", "default"):
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-    else:
-        raise ValueError(f"unknown conv precision {name!r}")
-
-
 @torch.no_grad()
 def run_sweep(
     wv,
@@ -255,6 +240,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from waveverify_torch.api.core import WaveVerify
+    from waveverify_torch.serve import set_conv_precision
     from waveverify_torch.train.data import AudioFolderDataset, SyntheticAudioDataset
 
     wv = WaveVerify(args.checkpoint, device=args.device,

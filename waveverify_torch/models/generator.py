@@ -36,7 +36,8 @@ class Generator(nn.Module):
             embedding_dim=g.embedding_dim, embedding_layers=g.embedding_layers,
             freq_bands=g.freq_bands, msg_mode=g.msg_mode,
             msg_carrier_gain=g.msg_carrier_gain,
-            film_carrier_gain=g.film_carrier_gain, **common)
+            film_carrier_gain=g.film_carrier_gain,
+            film_gamma_bias=g.film_gamma_bias, **common)
         self.decoder = SEANetDecoder(
             n_filters=g.channels_dec, n_residual_layers=g.n_residual_dec,
             final_activation=g.final_activation, res_scale=g.res_scale_dec,

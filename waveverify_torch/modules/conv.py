@@ -7,10 +7,15 @@ keep the names of the JAX tree (``v``, ``g``, ``b``) in torch layouts:
 - ``NormConv1d.v`` is ``(Cout, Cin // groups, K)``; weight norm is taken
   over dims (1, 2) per output channel;
 - ``NormConvTranspose1d.v`` is ``(Cin, Cout // groups, K)``; weight norm is
-  taken over dims (1, 2) per input channel.
+  taken over dims (1, 2) per input channel;
+- ``NormConv2d.v`` is ``(Cout, Cin // groups, Kh, Kw)`` over ``[B, C, H, W]``
+  activations; weight norm is taken over dims (1, 2, 3).
 
 Parameters are created empty: a module is filled from a checkpoint by
-:mod:`waveverify_torch.weights`.
+:mod:`waveverify_torch.weights`, or drawn by :func:`init_params` with the
+JAX package's initialisers (kaiming-normal ``v`` with the fan of
+``v.shape[1:]``, the torch rule for both conv kinds, gain sqrt(2) for convs
+that feed a ReLU-like activation; ``g = ||v||``; zero biases).
 """
 
 from __future__ import annotations
@@ -55,6 +60,55 @@ def unpad1d(x: torch.Tensor, paddings: Tuple[int, int]) -> torch.Tensor:
     return x[..., left:x.shape[-1] - right]
 
 
+def _kaiming_normal_std(fan_in: int, nonlinearity: str) -> float:
+    gain = math.sqrt(2.0) if nonlinearity == "relu" else 1.0
+    return gain / math.sqrt(max(fan_in, 1))
+
+
+def init_params(root: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter under ``root`` from ``generator`` (a CPU
+    ``torch.Generator``), in module order: each module that owns
+    parameters initialises them in its ``init_weights``."""
+    with torch.no_grad():
+        for m in root.modules():
+            if hasattr(m, "init_weights"):
+                m.init_weights(generator)
+
+
+def _normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def trunc_normal_(p: torch.Tensor, std: float,
+                  generator: torch.Generator) -> None:
+    """Normal(0, std) truncated at +-2 std, as flax's ``truncated_normal``
+    (``torch.nn.init.trunc_normal_`` bounds are absolute)."""
+    p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), std=std, a=-2 * std,
+                                  b=2 * std, generator=generator))
+
+
+class _WeightNormConv(nn.Module):
+    """``v``, weight-norm ``g`` over dims 1.. of ``v`` and bias ``b``."""
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        fan_in = math.prod(self.v.shape[1:])
+        _normal_(self.v, _kaiming_normal_std(fan_in, self.nonlinearity),
+                 generator)
+        if self.g is not None:
+            self.g.copy_(torch.sqrt(torch.sum(
+                self.v * self.v, dim=tuple(range(1, self.v.dim())))))
+        if self.b is not None:
+            self.b.zero_()
+
+    def weight(self) -> torch.Tensor:
+        """The effective f32 kernel: ``g * v / ||v||`` per leading index."""
+        if self.g is None:
+            return self.v
+        dims = tuple(range(1, self.v.dim()))
+        norm_v = torch.sqrt(torch.sum(self.v * self.v, dim=dims, keepdim=True))
+        return self.v * (self.g.view((-1,) + (1,) * len(dims)) / norm_v)
+
+
 def _check_norm(norm: str) -> None:
     if norm not in ("weight_norm", "none"):
         raise NotImplementedError(
@@ -62,30 +116,25 @@ def _check_norm(norm: str) -> None:
             "weight_norm, and the detector head none)")
 
 
-class NormConv1d(nn.Module):
+class NormConv1d(_WeightNormConv):
     """Conv1d with optional weight norm; ``w = g * v / ||v||``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 use_bias: bool = True, norm: str = "none"):
+                 use_bias: bool = True, norm: str = "none",
+                 nonlinearity: str = "linear"):
         super().__init__()
         _check_norm(norm)
         if in_channels % groups or out_channels % groups:
             raise ValueError("channels must be divisible by groups")
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.kernel_size, self.norm = kernel_size, norm
+        self.nonlinearity = nonlinearity
         self.v = nn.Parameter(torch.empty(out_channels, in_channels // groups,
                                           kernel_size))
         self.g = (nn.Parameter(torch.empty(out_channels))
                   if norm == "weight_norm" else None)
         self.b = nn.Parameter(torch.empty(out_channels)) if use_bias else None
-
-    def weight(self) -> torch.Tensor:
-        """The effective f32 kernel ``(Cout, Cin // groups, K)``."""
-        if self.g is None:
-            return self.v
-        norm_v = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2), keepdim=True))
-        return self.v * (self.g[:, None, None] / norm_v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv1d(x, self.weight().to(x.dtype), None, stride=self.stride,
@@ -95,30 +144,26 @@ class NormConv1d(nn.Module):
         return y
 
 
-class NormConvTranspose1d(nn.Module):
+class NormConvTranspose1d(_WeightNormConv):
     """ConvTranspose1d (padding 0) with optional weight norm over
     (Cout // groups, K) per input channel."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 use_bias: bool = True, norm: str = "none"):
+                 use_bias: bool = True, norm: str = "none",
+                 nonlinearity: str = "linear"):
         super().__init__()
         _check_norm(norm)
         if in_channels % groups or out_channels % groups:
             raise ValueError("channels must be divisible by groups")
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.kernel_size, self.norm = kernel_size, norm
+        self.nonlinearity = nonlinearity
         self.v = nn.Parameter(torch.empty(in_channels, out_channels // groups,
                                           kernel_size))
         self.g = (nn.Parameter(torch.empty(in_channels))
                   if norm == "weight_norm" else None)
         self.b = nn.Parameter(torch.empty(out_channels)) if use_bias else None
-
-    def weight(self) -> torch.Tensor:
-        if self.g is None:
-            return self.v
-        norm_v = torch.sqrt(torch.sum(self.v * self.v, dim=(1, 2), keepdim=True))
-        return self.v * (self.g[:, None, None] / norm_v)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose1d(x, self.weight().to(x.dtype), None,
@@ -129,6 +174,35 @@ class NormConvTranspose1d(nn.Module):
         return y
 
 
+class NormConv2d(_WeightNormConv):
+    """Conv2d over ``[B, C, H, W]`` with torch-style symmetric ``padding``
+    and optional weight norm over (Cin // groups, Kh, Kw) per output
+    channel (the discriminator's convs)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
+                 padding: Tuple[int, int] = (0, 0), groups: int = 1,
+                 use_bias: bool = True, norm: str = "none",
+                 nonlinearity: str = "linear"):
+        super().__init__()
+        _check_norm(norm)
+        if in_channels % groups or out_channels % groups:
+            raise ValueError("channels must be divisible by groups")
+        self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
+        self.norm, self.nonlinearity = norm, nonlinearity
+        self.v = nn.Parameter(torch.empty(out_channels, in_channels // groups,
+                                          *kernel_size))
+        self.g = (nn.Parameter(torch.empty(out_channels))
+                  if norm == "weight_norm" else None)
+        self.b = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight().to(x.dtype),
+                        None if self.b is None else self.b.to(x.dtype),
+                        stride=self.stride, padding=self.padding,
+                        groups=self.groups)
+
+
 class SConv1d(nn.Module):
     """Conv1d with causal (all left) or centred padding plus the extra right
     padding that keeps ``out_length == ceil(in_length / stride)``."""
@@ -136,12 +210,13 @@ class SConv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  use_bias: bool = True, causal: bool = False,
-                 norm: str = "none"):
+                 norm: str = "none", nonlinearity: str = "linear"):
         super().__init__()
         self.causal = causal
         self.conv = NormConv1d(in_channels, out_channels, kernel_size,
                                stride=stride, dilation=dilation, groups=groups,
-                               use_bias=use_bias, norm=norm)
+                               use_bias=use_bias, norm=norm,
+                               nonlinearity=nonlinearity)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s, d = self.conv.kernel_size, self.conv.stride, self.conv.dilation
@@ -162,7 +237,8 @@ class SConvTranspose1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  use_bias: bool = True, causal: bool = False,
-                 norm: str = "none", trim_right_ratio: float = 1.0):
+                 norm: str = "none", trim_right_ratio: float = 1.0,
+                 nonlinearity: str = "linear"):
         super().__init__()
         if not causal and trim_right_ratio != 1.0:
             raise ValueError("trim_right_ratio != 1.0 requires causal=True")
@@ -171,7 +247,8 @@ class SConvTranspose1d(nn.Module):
         self.causal, self.trim_right_ratio = causal, trim_right_ratio
         self.convtr = NormConvTranspose1d(
             in_channels, out_channels, kernel_size, stride=stride,
-            dilation=dilation, groups=groups, use_bias=use_bias, norm=norm)
+            dilation=dilation, groups=groups, use_bias=use_bias, norm=norm,
+            nonlinearity=nonlinearity)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.convtr(x)

@@ -19,7 +19,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from waveverify_torch.modules.conv import CausalSTFT, SConv1d, SConvTranspose1d
+from waveverify_torch.modules.conv import (
+    CausalSTFT,
+    SConv1d,
+    SConvTranspose1d,
+    trunc_normal_,
+)
 from waveverify_torch.ops.resblock_chain import (
     KERNEL_SIZES,
     fused_resblock_chain,
@@ -57,12 +62,20 @@ class L2Norm(nn.Module):
 
 class FiLM(nn.Module):
     """Feature-wise linear modulation of one channel band. gamma and beta
-    are computed in f32 and cast to the stream dtype at the modulation."""
+    are computed in f32 and cast to the stream dtype at the modulation.
+    ``gamma_bias`` is the gamma layer's initial bias."""
 
-    def __init__(self, embedding_dim: int):
+    def __init__(self, embedding_dim: int, gamma_bias: float = 0.0):
         super().__init__()
         self.gamma = nn.Linear(embedding_dim, 1)
         self.beta = nn.Linear(embedding_dim, 1)
+        self.gamma_bias = gamma_bias
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for layer in (self.gamma, self.beta):
+            trunc_normal_(layer.weight, 0.02, generator)
+        self.gamma.bias.fill_(self.gamma_bias)
+        self.beta.bias.zero_()
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor,
                 offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -127,7 +140,8 @@ class SEANetResnetBlock(nn.Module):
         self._chain_cache = None
         for i, d in enumerate(self.dilations):
             setattr(self, f"block_{i}_pw", SConv1d(dim, dim, 1, norm=norm,
-                                                   use_bias=False))
+                                                   use_bias=False,
+                                                   nonlinearity="relu"))
             setattr(self, f"block_{i}_dw", SConv1d(
                 dim, dim, kernel_size, dilation=d, groups=dim, norm=norm,
                 causal=causal, use_bias=use_bias))
@@ -241,14 +255,21 @@ class SpecBlock(nn.Module):
 
 
 class _ProjConv(nn.Module):
-    """1x1 projection with its own bias parameter ``b``."""
+    """1x1 projection with its own bias parameter ``b``, drawn from N(0, 1)
+    when ``normal_bias`` (the encoder's l2norm case), else zero."""
 
     def __init__(self, in_channels: int, out_channels: int, norm: str,
-                 use_bias: bool):
+                 use_bias: bool, normal_bias: bool = False):
         super().__init__()
         self.conv = SConv1d(in_channels, out_channels, 1, norm=norm,
                             use_bias=False)
         self.b = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+        self.normal_bias = normal_bias
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.b is not None:
+            self.b.copy_(torch.randn(self.b.shape, generator=generator)
+                         if self.normal_bias else torch.zeros(self.b.shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
@@ -281,7 +302,8 @@ class SEANetEncoder(nn.Module):
                  zero_init: bool = False, inout_norm: bool = True,
                  embedding_dim: int = 64, embedding_layers: int = 2,
                  freq_bands: int = 4, msg_mode: str = "reference",
-                 msg_carrier_gain: float = 1.0, film_carrier_gain: float = 0.0):
+                 msg_carrier_gain: float = 1.0, film_carrier_gain: float = 0.0,
+                 film_gamma_bias: float = 0.0):
         super().__init__()
         _check_ported(skip, act_all, expansion, groups, zero_init, pad_mode)
         self.act = get_activation(activation, alpha)
@@ -324,7 +346,7 @@ class SEANetEncoder(nn.Module):
                 inout_norm=inout_norm))
             stride *= ratio
             setattr(self, f"down_{block_idx}_expand", SConv1d(
-                dim, dim * 2, 1, norm=norm, use_bias=False))
+                dim, dim * 2, 1, norm=norm, use_bias=False, nonlinearity="relu"))
             setattr(self, f"down_{block_idx}_dw", SConv1d(
                 dim * 2, dim * 2, ratio * 2, stride=ratio, groups=dim * 2,
                 norm=norm, causal=causal, use_bias=use_bias))
@@ -333,7 +355,8 @@ class SEANetEncoder(nn.Module):
                     f"channels ({dim * 2}) must be divisible by freq_bands "
                     f"({freq_bands}) at scale {block_idx}")
             for band_idx in range(freq_bands):
-                setattr(self, f"film_{block_idx}_{band_idx}", FiLM(embedding_dim))
+                setattr(self, f"film_{block_idx}_{band_idx}",
+                        FiLM(embedding_dim, film_gamma_bias))
             mult *= 2
         self.spec_post = SpecBlock(
             spec, spec_compression, mult * n_fft_base, mult * n_filters, stride,
@@ -341,12 +364,21 @@ class SEANetEncoder(nn.Module):
             res_scale=res_scale, inout_norm=inout_norm)
         self.post_dw = SConv1d(mult * n_filters, mult * n_filters,
                                last_kernel_size, groups=mult * n_filters,
-                               norm=norm, causal=causal, use_bias=False)
+                               norm=norm, causal=causal, use_bias=False,
+                               nonlinearity="relu")
         # with l2norm the projection always has a bias (the reference would
         # dereference a missing one)
         self.post_proj = _ProjConv(mult * n_filters, dimension, norm,
-                                   use_bias or l2norm)
+                                   use_bias or l2norm, normal_bias=l2norm)
         self.l2norm_layer = L2Norm(inout_norm) if l2norm else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The message MLP's Dense layers: truncated normal(0.02), zero
+        bias."""
+        for i in range(-1, self.embedding_layers):
+            layer = getattr(self, "msg_in" if i < 0 else f"msg_hidden_{i}")
+            trunc_normal_(layer.weight, 0.02, generator)
+            layer.bias.zero_()
 
     def _msg_embed(self, msg: torch.Tensor) -> torch.Tensor:
         """Message MLP; in ``carrier`` mode on +/-1 bits plus the fixed
@@ -437,7 +469,7 @@ class SEANetDecoder(nn.Module):
             setattr(self, f"up_{i}_dw", SConvTranspose1d(
                 dim, dim, ratio * 2, stride=ratio, groups=dim, norm=norm,
                 causal=causal, trim_right_ratio=trim_right_ratio,
-                use_bias=False))
+                use_bias=False, nonlinearity="relu"))
             setattr(self, f"up_{i}_proj", SConv1d(dim, dim // 2, 1, norm=norm,
                                                   use_bias=use_bias))
             for j in range(n_residual_layers):
@@ -448,7 +480,8 @@ class SEANetDecoder(nn.Module):
                     res_scale=res_scale, idx=j))
             mult //= 2
         self.conv_out = SConv1d(n_filters, channels, last_kernel_size,
-                                norm=norm, causal=causal, use_bias=use_bias)
+                                norm=norm, causal=causal, use_bias=use_bias,
+                                nonlinearity="relu")
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.conv_in_dw(self.conv_in(z))

@@ -1,2 +1,2 @@
 """Hand-written kernels of the PyTorch port, and the signal processing
-(FIR filters, resampling) its effects use."""
+(FIR filters, resampling, the STFT) its effects and losses use."""

@@ -1,18 +1,18 @@
-"""FIR filters and polyphase resampling (counterpart of the first half of
+"""FIR filters, polyphase resampling and the STFT (counterpart of
 ``waveverify_tpu/ops/dsp.py``).
 
-The kernels are built in numpy exactly as the JAX package builds them and
-applied with ``F.conv1d`` along the last axis of ``[..., T]`` audio, in the
-audio's dtype and on its device. The JAX package leaves these convolutions
-to XLA, so plain PyTorch (cuDNN on the card) is their counterpart. The
-STFT helpers are not ported yet.
+The kernels and DFT bases are built in numpy exactly as the JAX package
+builds them and applied with ``F.conv1d`` or a matmul along the last axis
+of ``[..., T]`` audio, in the audio's dtype and on its device. The JAX
+package leaves these to XLA, so plain PyTorch (cuDNN and cuBLAS on the
+card) is their counterpart.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,3 +119,79 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
     y = F.conv1d(xf, w, stride=p)[:, :, :n_frames]  # [N, q, frames]
     y = y.transpose(1, 2).reshape(y.shape[0], -1)[:, :out_t]
     return y.reshape(shape[:-1] + (out_t,))
+
+
+# ---------------------------------------------------------------------------
+# STFT
+# ---------------------------------------------------------------------------
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """``[..., T]`` -> ``[..., n_frames, frame_length]``, frames starting
+    every ``hop`` samples (a strided view)."""
+    return x.unfold(-1, frame_length, hop)
+
+
+@lru_cache(maxsize=None)
+def _hann_window(n: int) -> np.ndarray:
+    return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _rdft_basis(n_fft: int) -> np.ndarray:
+    """Real-DFT basis ``[n_fft, 2F]``: columns cos then -sin, F = n_fft//2+1;
+    ``frames @ basis`` is the rfft as (real, imag) halves."""
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def _rdft(frames: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    out = torch.matmul(frames, _const(_rdft_basis(n_fft), frames))
+    f = n_fft // 2 + 1
+    return out[..., :f], out[..., f:]
+
+
+def _reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Reflect-pad the last axis of ``[..., T]`` (``F.pad`` takes reflect
+    padding on 2-D and 3-D inputs only)."""
+    shape = x.shape
+    y = F.pad(x.reshape(-1, 1, shape[-1]), (left, right), mode="reflect")
+    return y.reshape(shape[:-1] + (y.shape[-1],))
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int,
+         window: Optional[torch.Tensor] = None, center: bool = True
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """STFT as (real, imag): ``[..., T]`` -> 2 x ``[..., n_frames,
+    n_fft // 2 + 1]``; reflect-padded by n_fft // 2 on each side when
+    ``center``, Hann window by default."""
+    if window is None:
+        window = _const(_hann_window(n_fft), x)
+    if center:
+        x = _reflect_pad(x, n_fft // 2, n_fft // 2)
+    return _rdft(frame_signal(x, n_fft, hop) * window, n_fft)
+
+
+def stft_match_stride(x: torch.Tensor, window_length: int,
+                      hop: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audiotools' STFT with ``match_stride=True``: n_frames ==
+    ceil(T / hop). Reflect-pads (window - hop) / 2 on the left, the same
+    plus the alignment to a hop multiple on the right, then frames without
+    centring. ``[..., T]`` -> (real, imag), each ``[..., n_frames,
+    window // 2 + 1]``."""
+    if hop is None:
+        hop = window_length // 4
+    t = x.shape[-1]
+    right_align = int(math.ceil(t / hop)) * hop - t
+    pad = (window_length - hop) // 2
+    x = _reflect_pad(x, pad, pad + right_align)
+    frames = frame_signal(x, window_length, hop) * _const(
+        _hann_window(window_length), x)
+    return _rdft(frames, window_length)

@@ -459,11 +459,15 @@ class ResblockChainFn(torch.autograd.Function):
     def backward(ctx, g):
         prescales, res_scale, alpha = ctx.statics
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # a named range, so a profile can sum the plain backward's kernels
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
             y = resblock_chain_ref(*inputs, prescales=prescales,
                                    res_scale=res_scale, alpha=alpha)
-        grads = torch.autograd.grad(y, inputs, g, allow_unused=True)
+            grads = torch.autograd.grad(y, inputs, g, allow_unused=True)
         return (*grads, None, None, None)
+
+
+BACKWARD_RANGE = "resblock_chain_ref_backward"
 
 
 def stack_chain_weights(slots, dtype: torch.dtype) -> List[torch.Tensor]:

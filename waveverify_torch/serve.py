@@ -48,6 +48,19 @@ def strict_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def set_conv_precision(name: str) -> None:
+    """``highest``: f32 convolutions and matmuls in f32 (TF32 off for cuDNN
+    and cuBLAS); ``high`` / ``default``: TF32 allowed for both. A
+    process-wide PyTorch setting; the resblock-chain kernel ignores it."""
+    if name == "highest":
+        strict_f32()
+    elif name in ("high", "default"):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        raise ValueError(f"unknown conv precision {name!r}")
+
+
 @torch.no_grad()
 def embed_detect(models, audio: torch.Tensor, msg: torch.Tensor,
                  act_dtype: str = "float32"

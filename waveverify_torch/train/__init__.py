@@ -1,1 +1,3 @@
-"""Host input pipeline of the port (clips for the robustness sweep)."""
+"""Training of the port: the composite forward, the train and validation
+steps, the loop, checkpoints and the CLI (``python -m
+waveverify_torch.train``); and the host input pipeline."""

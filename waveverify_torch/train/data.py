@@ -1,10 +1,12 @@
-"""Host input pipeline: fixed-length float32 clips for the robustness sweep
-(counterpart of ``waveverify_tpu/train/data.py``).
+"""Host input pipeline: fixed-length float32 clips for training and the
+robustness sweep (counterpart of ``waveverify_tpu/train/data.py``).
 
 A copy of the JAX package's clip sources, so one ``RandomState(seed)``
 gives the same clips in both packages: :class:`SyntheticAudioDataset`
 (drifting harmonics plus pink-ish noise) and :class:`AudioFolderDataset`
-(random crops of the audio files under some folders, mono at 16 kHz).
+(random crops of the audio files under some folders, mono at 16 kHz);
+:func:`prefetch_batches` makes (audio, message) batches ahead on a
+thread.
 Only WAV files are decoded so far; the native C++ WAV ingest is not
 ported.
 """
@@ -12,8 +14,10 @@ ported.
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 from pathlib import Path
-from typing import List, Sequence
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -115,3 +119,49 @@ class SyntheticAudioDataset:
         # amplitude envelope so localization segments differ
         env = (0.3 + 0.7 * rng.rand(B, 1)).astype(np.float32)
         return (x * env).astype(np.float32)
+
+
+def generate_random_message(rng: np.random.RandomState, batch_size: int,
+                            nbits: int = 16) -> np.ndarray:
+    """Random {0, 1} messages ``[batch_size, nbits]`` float32."""
+    return rng.randint(0, 2, size=(batch_size, nbits)).astype(np.float32)
+
+
+def prefetch_batches(dataset, batch_size: int, nbits: int = 16,
+                     seed: int = 0, depth: int = 2
+                     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(audio ``[B, T]``, message ``[B, nbits]``) batches, ``depth`` of
+    them made ahead on a daemon thread; closing the generator stops it. An
+    exception raised while making a batch (an unreadable file) is raised
+    again here, where the batch would have been read."""
+    rng = np.random.RandomState(seed)
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def worker():
+        try:
+            while not stop.is_set():
+                put((dataset.batch(batch_size),
+                     generate_random_message(rng, batch_size, nbits)))
+        except Exception as e:
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5.0)

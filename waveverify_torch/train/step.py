@@ -1,0 +1,250 @@
+"""One training step and one validation step (counterpart of
+``waveverify_tpu/train/step.py``), in the reference's order:
+
+1. one composite forward, its graph kept;
+2. the discriminator update, on the detached raw generator output against
+   the clean audio: LSGAN plus the gradient penalty, gradients clipped at
+   ``MAX_GRADIENT_NORM``;
+3. the generator losses against the *updated* discriminator (whose
+   parameters take no gradient from them), backward through the kept
+   forward;
+4. only the generator's gradients clipped; the detector and locator are
+   stepped unclipped;
+5. per-sample BER and MIoU and per-bit accuracy, for the scheduler.
+
+The pieces are functions of their own so a caller can time them apart.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import torch
+
+from waveverify_torch.config import LossConfig, TrainConfig
+from waveverify_torch.effects.effects import EffectBank
+from waveverify_torch.losses import (
+    decoding_loss,
+    decoding_loss_bits,
+    discriminator_loss,
+    generator_loss,
+    l1_loss,
+    localization_loss,
+    mel_spectrogram_loss,
+    multi_scale_stft_loss,
+)
+from waveverify_torch.metrics import ber, miou, sisnr
+from waveverify_torch.train.state import TrainState
+from waveverify_torch.train.watermarking import Draws, forward_train, forward_valid
+
+MAX_GRADIENT_NORM = 10.0
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise ``ValueError`` naming the first option the port's training does
+    not implement: the ``warmup_*`` knobs drive the JAX trainer's host
+    controllers (ramp, nbits curriculum, alternation, message freeze)."""
+    default = LossConfig()
+    for f in dataclasses.fields(LossConfig):
+        if f.name.startswith("warmup_") and (
+                getattr(cfg.loss, f.name) != getattr(default, f.name)):
+            raise ValueError(f"LossConfig.{f.name} is not supported by the "
+                             "PyTorch trainer yet (the warmup controllers are "
+                             "not ported)")
+
+
+@contextlib.contextmanager
+def frozen(module: torch.nn.Module) -> Iterator[None]:
+    """Parameters of ``module`` take no gradient inside the block."""
+    flags = [(p, p.requires_grad) for p in module.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+
+
+def forward(state: TrainState, cfg: TrainConfig, bank: EffectBank,
+            audio: torch.Tensor, msg: torch.Tensor, effect_idx,
+            draws: Draws) -> Dict[str, torch.Tensor]:
+    """Step 1: the composite forward with its graph."""
+    loss_cfg = cfg.loss
+    return forward_train(
+        state.models, audio, msg, effect_idx, bank, draws,
+        sample_rate=cfg.generator.sample_rate,
+        window_duration=cfg.window_duration, remat=cfg.remat,
+        clean_detector=loss_cfg.lambda_dec_clean > 0,
+        jitter_hop=cfg.generator.hop_length if cfg.sub_hop_jitter else 0,
+        lowband_cutoff=(loss_cfg.lowband_cutoff_hz
+                        if loss_cfg.lambda_dec_lowband > 0 else 0.0))
+
+
+def discriminator_update(state: TrainState, cfg: TrainConfig,
+                         fake: torch.Tensor, audio: torch.Tensor,
+                         alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2: (loss, pre-clip gradient norm)."""
+    models = state.models
+    d_loss = discriminator_loss(models.apply_discriminator, fake.detach(),
+                                audio, alpha=alpha,
+                                gp_weight=cfg.loss.gp_weight)
+    state.disc_opt.zero_grad(set_to_none=True)
+    d_loss.backward()
+    norm = torch.nn.utils.clip_grad_norm_(models.discriminator.parameters(),
+                                          MAX_GRADIENT_NORM)
+    state.disc_opt.step()
+    state.disc_sched.step()
+    return d_loss.detach(), norm
+
+
+def generator_losses(state: TrainState, cfg: TrainConfig,
+                     outs: Dict[str, torch.Tensor], audio: torch.Tensor,
+                     msg: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Step 3's losses; ``"loss"`` is the weighted total. The
+    discriminator's parameters take no gradient from them."""
+    lc = cfg.loss
+    sr = cfg.generator.sample_rate
+    w = outs["watermarked"]
+    logs: Dict[str, torch.Tensor] = {}
+    logs["stft/loss"] = multi_scale_stft_loss(
+        w, audio, window_lengths=lc.stft_window_lengths)
+    logs["mel/loss"] = mel_spectrogram_loss(
+        w, audio, sample_rate=sr, n_mels=lc.mel_n_mels,
+        window_lengths=lc.mel_window_lengths, clamp_eps=lc.mel_clamp_eps,
+        mag_weight=lc.mel_mag_weight, pow=lc.mel_pow)
+    logs["waveform/loss"] = l1_loss(w, audio)
+    with frozen(state.models.discriminator):
+        logs["adv/gen_loss"], logs["adv/feat_loss"] = generator_loss(
+            state.models.apply_discriminator, w, audio)
+    logs["dec/loss"] = decoding_loss(outs["detector_logits"], outs["mask"], msg)
+    logs["loc/loss"] = localization_loss(outs["locator_logits"], outs["mask"])
+    total = (lc.lambda_stft * logs["stft/loss"]
+             + lc.lambda_mel * logs["mel/loss"]
+             + lc.lambda_waveform * logs["waveform/loss"]
+             + lc.lambda_adv_gen * logs["adv/gen_loss"]
+             + lc.lambda_dec * logs["dec/loss"]
+             + lc.lambda_loc * logs["loc/loss"])
+    ones = torch.ones_like(outs["mask"])
+    if lc.lambda_dec_clean > 0:
+        logs["dec/loss_clean"] = decoding_loss(outs["detector_logits_clean"],
+                                               ones, msg)
+        total = total + lc.lambda_dec_clean * logs["dec/loss_clean"]
+    if lc.lambda_dec_bits > 0:
+        bits = decoding_loss_bits(outs["detector_logits"], outs["mask"], msg)
+        if lc.lambda_dec_clean > 0:
+            bits = bits + decoding_loss_bits(outs["detector_logits_clean"],
+                                             None, msg)
+        logs["dec/loss_bits"] = bits
+        total = total + lc.lambda_dec_bits * bits
+    if lc.lambda_dec_lowband > 0:
+        lb = (decoding_loss(outs["detector_logits_lowband"], ones, msg)
+              + decoding_loss_bits(outs["detector_logits_lowband"], None, msg))
+        logs["dec/loss_lowband"] = lb
+        total = total + lc.lambda_dec_lowband * lb
+    logs["loss"] = total
+    return logs
+
+
+def grad_norm(module: torch.nn.Module) -> torch.Tensor:
+    """The global L2 norm of ``module``'s gradients."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in module.parameters()
+         if p.grad is not None]))
+
+
+def generator_update(state: TrainState, total: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """Step 3's backward and step 4: returns the three networks' gradient
+    norms, the generator's before its clip."""
+    models = state.models
+    state.wm_opt.zero_grad(set_to_none=False)
+    total.backward()
+    norms = {f"grad_norm/{net}": grad_norm(getattr(models, net))
+             for net in ("detector", "locator")}
+    norms["grad_norm/generator"] = torch.nn.utils.clip_grad_norm_(
+        models.generator.parameters(), MAX_GRADIENT_NORM)
+    state.wm_opt.step()
+    state.wm_sched.step()
+    return norms
+
+
+@torch.no_grad()
+def feedback(outs: Dict[str, torch.Tensor], msg: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+    """Step 5: per-sample BER and MIoU, and the per-bit decision accuracy
+    of the mask-weighted time-mean logit."""
+    logits, mask = outs["detector_logits"], outs["mask"]
+    per_sample_ber = ber(logits, msg, mask, per_sample=True)
+    per_sample_miou = miou(torch.sigmoid(outs["locator_logits"]), mask,
+                           per_sample=True)
+    pm = mask[:, :, None]
+    denom = torch.sum(pm, dim=1)
+    z = torch.sum(logits * pm, dim=1) / torch.clamp(denom, min=1.0)
+    valid = (denom > 0).float()
+    correct = ((z > 0) == (msg > 0.5)).float() * valid
+    per_bit_acc = torch.sum(correct, dim=0) / torch.clamp(torch.sum(valid), min=1.0)
+    return {"train/ber": torch.mean(per_sample_ber),
+            "train/miou": torch.mean(per_sample_miou),
+            "per_sample_ber": per_sample_ber,
+            "per_sample_miou": per_sample_miou,
+            "per_bit_acc": per_bit_acc}
+
+
+def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
+               audio: torch.Tensor, msg: torch.Tensor, effect_idx,
+               draws: Draws) -> Dict[str, torch.Tensor]:
+    """One step; updates ``state`` in place and returns its metrics as
+    tensors on the device (the host reads them when it needs them).
+
+    audio ``[B, T]``, msg ``[B, nbits]`` on the state's device;
+    effect_idx ``[B]`` host indices into ``bank``; ``draws`` on the
+    device."""
+    check_supported(cfg)
+    outs = forward(state, cfg, bank, audio, msg, effect_idx, draws)
+    d_loss, d_norm = discriminator_update(state, cfg, outs["residual"], audio,
+                                          draws.gp_alpha)
+    logs = generator_losses(state, cfg, outs, audio, msg)
+    norms = generator_update(state, logs["loss"])
+    state.step += 1
+    return {**{k: v.detach() for k, v in logs.items()},
+            "adv/disc_loss": d_loss,
+            **norms,
+            "grad_norm/discriminator": d_norm,
+            **feedback(outs, msg)}
+
+
+@torch.no_grad()
+def val_step(state: TrainState, cfg: TrainConfig, audio: torch.Tensor,
+             msg: torch.Tensor, draws: Draws,
+             eval_effects: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+    """Reconstruction losses and per-effect BER / MIoU over the sweep;
+    ``val/loss`` is the total the trainer's ``best`` checkpoint tracks."""
+    lc = cfg.loss
+    sr = cfg.generator.sample_rate
+    out = forward_valid(state.models, audio, msg, draws,
+                        eval_effects=eval_effects, sample_rate=sr,
+                        window_duration=cfg.window_duration)
+    w = out["watermarked"]
+    metrics: Dict[str, torch.Tensor] = {
+        "val/stft_loss": multi_scale_stft_loss(
+            w, audio, window_lengths=lc.stft_window_lengths),
+        "val/mel_loss": mel_spectrogram_loss(
+            w, audio, sample_rate=sr, n_mels=lc.mel_n_mels,
+            window_lengths=lc.mel_window_lengths, clamp_eps=lc.mel_clamp_eps,
+            mag_weight=lc.mel_mag_weight, pow=lc.mel_pow),
+        "val/waveform_loss": l1_loss(w, audio),
+        "val/sisnr": sisnr(w, audio),
+    }
+    for name, res in out["effects"].items():
+        metrics[f"val/ber/{name}"] = res["ber"]
+        metrics[f"val/miou/{name}"] = res["miou"]
+    n = max(len(out["effects"]), 1)
+    metrics["val/ber"] = sum(r["ber"] for r in out["effects"].values()) / n
+    metrics["val/miou"] = sum(r["miou"] for r in out["effects"].values()) / n
+    metrics["val/loss"] = (lc.lambda_stft * metrics["val/stft_loss"]
+                           + lc.lambda_mel * metrics["val/mel_loss"]
+                           + lc.lambda_waveform * metrics["val/waveform_loss"])
+    return metrics

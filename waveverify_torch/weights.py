@@ -8,7 +8,13 @@ modules carry the flax names, so a path maps onto a parameter by replacing
 
 - conv ``v``: WIO ``(K, Cin / g, Cout)`` -> torch ``(Cout, Cin / g, K)``;
 - transposed-conv ``v``: already ``(Cin, Cout / g, K)``;
+- 2-D conv ``v`` (the discriminator's): HWIO ``(Kh, Kw, Cin / g, Cout)`` ->
+  OIHW ``(Cout, Cin / g, Kh, Kw)``;
 - Dense ``kernel (in, out)`` -> ``Linear.weight (out, in)``; ``bias`` as is.
+
+:func:`export_params` is the inverse map (port -> flax paths and layouts),
+and :func:`write_npz` writes the ``save_weights_npz`` format, so weights
+carry across both ways.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from waveverify_torch.modules.conv import NormConv1d, NormConvTranspose1d
+from waveverify_torch.modules.conv import NormConv1d, NormConv2d
 
 
 def read_npz(path: Union[str, Path]) -> Tuple[Dict[str, np.ndarray],
@@ -51,13 +57,53 @@ def _to_torch_layout(owner: nn.Module, name: str,
                      value: np.ndarray) -> Tuple[str, np.ndarray]:
     if isinstance(owner, NormConv1d) and name == "v":
         return name, np.transpose(value, (2, 1, 0))
-    if isinstance(owner, NormConvTranspose1d) and name == "v":
-        return name, value
-    if isinstance(owner, nn.Linear):
-        if name == "kernel":
-            return "weight", value.T
-        return name, value
+    if isinstance(owner, NormConv2d) and name == "v":
+        return name, np.transpose(value, (3, 2, 0, 1))
+    if isinstance(owner, nn.Linear) and name == "kernel":
+        return "weight", value.T
     return name, value
+
+
+def _to_flax_layout(owner: nn.Module, name: str,
+                    value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if isinstance(owner, NormConv1d) and name == "v":
+        return name, np.transpose(value, (2, 1, 0))
+    if isinstance(owner, NormConv2d) and name == "v":
+        return name, np.transpose(value, (2, 3, 1, 0))
+    if isinstance(owner, nn.Linear) and name == "weight":
+        return "kernel", value.T
+    return name, value
+
+
+def export_params(module: nn.Module, prefix: str) -> Dict[str, np.ndarray]:
+    """Every parameter of ``module`` as f32 numpy under its '/'-joined flax
+    path below ``prefix``, in the flax layout (the inverse of
+    :func:`load_params`)."""
+    out: Dict[str, np.ndarray] = {}
+    for full, p in module.named_parameters():
+        *path, name = full.split(".")
+        owner = module.get_submodule(".".join(path))
+        # a copy: on the CPU .numpy() would alias the live parameter
+        name, arr = _to_flax_layout(owner, name,
+                                    p.detach().float().cpu().numpy().copy())
+        out["/".join([prefix] + path + [name])] = np.ascontiguousarray(arr)
+    return out
+
+
+def write_npz(path: Union[str, Path], flat: Mapping[str, np.ndarray],
+              snapshot: Optional[Dict[str, Any]] = None,
+              dtype=np.float16) -> Path:
+    """Write ``flat`` (flax paths) as a ``save_weights_npz`` file: values
+    cast to ``dtype``, the model-config ``snapshot`` as JSON bytes under
+    ``__config__``."""
+    arrays = {k: np.asarray(v).astype(dtype) for k, v in flat.items()}
+    if snapshot is not None:
+        arrays["__config__"] = np.frombuffer(json.dumps(snapshot).encode(),
+                                             dtype=np.uint8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path
 
 
 def load_params(module: nn.Module, flat: Mapping[str, np.ndarray],
