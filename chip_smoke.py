@@ -9,7 +9,10 @@ Phases, each fatal on failure:
      widest-T chains of a long-audio window (T = 176000) at batch 1, ragged
      tiles with M = 1/2/3 and non-zero biases, narrow widths (C = 32, 48), a
      T shorter than the halo, f32 (TF32 off) and bf16, and the autograd
-     Function's gradients;
+     Function's gradients; then chains off the shipped configs through the
+     seanet gate (ROUTE_CHAINS): C = 1024 on the plain path, C = 40 and 24
+     on padded channels with M = 10, k = 3 at C = 64 and 256, each with its
+     launches read around it;
   4. the paths, each with the kernel's launch count read around it, f32
      and bf16, on the committed r5 checkpoint:
      a. embed+detect: WaveVerify.embed_batch / detect_batch and
@@ -41,7 +44,19 @@ Phases, each fatal on failure:
      through WaveVerify; ms per step and
      clips/s, peak memory with and without remat, the split of a step,
      the host's work per step, the chains' plain backward, the losses'
-     STFTs, and a profile of 3 steps.
+     STFTs, and a profile of 3 steps;
+  7. the training controllers, under the flags of scripts/train_demo_r5.sh
+     (batch 16 x 0.9 s, no remat): (i) the CLI's entry point continuing
+     the r5 snapshot (weights/snapshots/, step 11000) for 20 steps, the
+     restored ramp on every line and train/ber inside the JAX run's band;
+     (ii) a gated start from random init (alt_period 8) for 20 steps, the
+     alternation, the discriminator's cadence, identity-only attacks, 4
+     bits, the frozen message path bit for bit, then 6 steps whose frozen
+     generator only decays; (iii) phase 6's card-vs-CPU step with every
+     gate closed and 4 bits active, and again with the generator on, its
+     message path frozen and 4 bits active; the recipe's ms per step
+     (with and without the discriminator), peak memory and launches per
+     step.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -253,6 +268,66 @@ def chain_cost(b, t, c, m, itemsize, k=5):
     flops = m * 2 * b * t * c * (2 * c + 2 * k)
     nbytes = itemsize * (2 * b * t * c + m * (2 * c * c + 2 * k * c + 2 * c))
     return flops, nbytes
+
+
+# chains off the shipped configs, through the seanet gate (T, C, M, k):
+# C = 1024 runs the plain path; C = 40 and 24 the kernel on channels padded
+# to 48 and 32, M = 10 in two launches; k = 3 the kernel's K = 3 build
+ROUTE_CHAINS = [(400, 1024, 3, 5), (2000, 40, 10, 5), (2000, 24, 10, 5),
+                (8000, 64, 2, 3), (2000, 256, 2, 3)]
+
+
+def check_routes(torch, rc, report):
+    """Phase 3b: chains of SEANetResnetBlock modules through
+    ``modules.seanet._apply_resblock_chain`` at ROUTE_CHAINS, batch 2, f32
+    and bf16 (C = 1024: f32, the plain path's modules run f32 weights):
+    the launches read around each call (0 for C > 768, the plan's count
+    otherwise) and the result against the plain version, the chain's
+    blocks one by one for C > 768 and ``resblock_chain_ref`` on the same
+    stacked weights otherwise."""
+    from waveverify_torch.modules import seanet
+
+    out = {}
+    for t, c, m, k in ROUTE_CHAINS:
+        gen = torch.Generator().manual_seed(c + m + k)
+        blocks = [seanet.SEANetResnetBlock(c, kernel_size=k, res_scale=RES_SCALE,
+                                           idx=j + 1) for j in range(m)]
+        with torch.no_grad():
+            for prm in (q for blk in blocks for q in blk.parameters()):
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.1)
+        blocks = [blk.cuda() for blk in blocks]
+        x32 = torch.randn(2, c, t, generator=gen) * 0.3
+        plain_path = c > rc.MAX_CHANNELS
+        for dtype in (torch.float32,) if plain_path else (torch.float32, torch.bfloat16):
+            x = x32.to("cuda", dtype)
+            with torch.no_grad():
+                before = rc.resblock_chain.launches
+                y = seanet._apply_resblock_chain(blocks, x)
+                torch.cuda.synchronize()
+                launches = rc.resblock_chain.launches - before
+                if plain_path:
+                    ref = x
+                    for blk in blocks:
+                        ref = blk(ref)
+                else:
+                    ref = rc.resblock_chain_ref(
+                        x, *seanet._chain_weights(blocks, dtype),
+                        prescales=[b.prescale for b in blocks], res_scale=RES_SCALE)
+            name = str(dtype).split(".")[1]
+            what = f"route T={t} C={c} M={m} k={k} {name}"
+            expected = 0 if plain_path else rc.launches_per_chain(c, m, k)
+            if launches != expected:
+                raise AssertionError(f"{what}: {launches} launches, expected {expected}")
+            if plain_path:
+                err = (y - ref).abs().max().item()
+                if not err == 0.0:
+                    raise AssertionError(f"{what}: plain path differs from its blocks")
+            else:
+                err = check_close(torch, y, ref, what)
+            out[what] = {"launches": launches, "max_abs_err": err}
+    report["routes"] = out
+    print("routes through the seanet gate (launches, max |err| vs plain): " + "; ".join(
+        f"{k} {v['launches']}, {v['max_abs_err']:.2e}" for k, v in out.items()))
 
 
 def same_decisions(p, ref, margin):
@@ -503,6 +578,12 @@ CHAIN_GRAD_TOL = 1e-5
 TRAIN_NORM_TOL = 1e-3
 TRAIN_GRAD_TOL = {"generator": 5e-2, "detector": 2e-3, "locator": 3e-4,
                   "discriminator": 2e-2}
+# the generator's pre-clip norm under gates that zero the perceptual terms:
+# it then comes from the decoding path alone, which the spec blocks'
+# log-STFT features leave ill-conditioned at random init. On an H100 80GB
+# HBM3 (700 W) it read 2.86e-03 card against CPU in every run, while
+# audio * (1 +- 1e-7) moved it by 2.2e-02 on the card alone
+GATED_NORM_TOL = 1e-2
 
 
 def train_batch(cfg, bank, b, step):
@@ -521,16 +602,22 @@ def train_batch(cfg, bank, b, step):
     idx, _ = EffectScheduler(rng=np.random.RandomState(step)).select_bank_indices(
         b, bank.specs)
     d = draw(step_generator(cfg.seed, step), b, audio.shape[1],
-             len(bank.noise_branches))
+             len(bank.noise_branches), CLIP, cfg.window_duration,
+             cfg.generator.hop_length if cfg.sub_hop_jitter else 0)
     return audio, msg, idx, d
 
 
-def run_train_step(torch, state, cfg, bank, batch, device):
+def run_train_step(torch, state, cfg, bank, batch, device, gates=None):
+    """One train step on ``device``; ``gates`` are the controllers' inputs
+    (``train_step``'s keywords, ``bit_mask`` as a numpy array)."""
     from waveverify_torch.train.step import train_step
 
     audio, msg, idx, d = batch
+    kw = dict(gates or {})
+    if kw.get("bit_mask") is not None:
+        kw["bit_mask"] = torch.tensor(kw["bit_mask"], device=device)
     return train_step(state, cfg, bank, torch.tensor(audio, device=device),
-                      torch.tensor(msg, device=device), idx, d.to(device))
+                      torch.tensor(msg, device=device), idx, d.to(device), **kw)
 
 
 def check_chain_grads(torch, rc, report):
@@ -582,12 +669,17 @@ def check_chain_grads(torch, rc, report):
         raise AssertionError(f"chain gradients under checkpoint: {bad}")
 
 
-def check_train_step(torch, rc, report):
+def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
     """Training a: one step at full width (TrainConfig(), batch 2 x 16000)
     on the card against the same step of the port on the CPU, from the
     same seed-0 parameters and draws, f32 with TF32 off: the losses, the
     gradient norms, every parameter's gradient and every parameter after
-    the step. Returns the launches of the card's step."""
+    the step; under ``gates`` (the controllers' inputs) too. A network the
+    gates leave without a gradient (the discriminator without
+    ``train_disc``) must have none on either side and keep its parameters.
+    Under gates that zero the perceptual terms the generator's pre-clip
+    norm is held to GATED_NORM_TOL. Returns the launches of the card's
+    step."""
     import dataclasses
 
     from waveverify_torch.config import TrainConfig
@@ -603,9 +695,9 @@ def check_train_step(torch, rc, report):
                                          torch.device(dev))
         t0 = time.perf_counter()
         rc.resblock_chain.launches = 0
-        metrics[dev] = run_train_step(torch, states[dev], cfg, bank, batch, dev)
+        metrics[dev] = run_train_step(torch, states[dev], cfg, bank, batch, dev, gates)
         torch.cuda.synchronize()
-        report.setdefault("train_step_check", {})[f"{dev}_s"] = time.perf_counter() - t0
+        report.setdefault(label, {})[f"{dev}_s"] = time.perf_counter() - t0
     launches = rc.resblock_chain.launches
     per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
     if launches != per_step:
@@ -616,11 +708,18 @@ def check_train_step(torch, rc, report):
     # each network's worst leaf: the gradient the step left (the generator's
     # and discriminator's after their clip), card against CPU
     grad_dev = {}
+    untrained = set() if (gates or {}).get("train_disc", True) else {"discriminator"}
     for net in TRAIN_NETS:
         ref = dict(getattr(states["cpu"].models, net).named_parameters())
         devs = {}
         for n, p in getattr(states["cuda"].models, net).named_parameters():
             g, g_ref = p.grad, ref[n].grad
+            if net in untrained:
+                if g is not None or g_ref is not None:
+                    raise AssertionError(f"{label} {net}.{n}: a gradient without "
+                                         "train_disc")
+                devs[n] = 0.0
+                continue
             if g is None or g_ref is None:
                 raise AssertionError(f"train step {net}.{n}: no gradient")
             devs[n] = float((g.cpu() - g_ref).norm() / g_ref.norm().clamp_min(1e-30))
@@ -628,6 +727,9 @@ def check_train_step(torch, rc, report):
         grad_dev[net] = (worst, devs[worst])
     rel = {k: abs(float(gpu[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-12)
            for k, v in cpu.items() if v.dim() == 0}
+    norm_limit = {}
+    if gates and not gates.get("percep_scale", 1.0):
+        norm_limit["grad_norm/generator"] = GATED_NORM_TOL
     # Adam's first step moves a parameter by lr * g / (|g| + eps): a gradient
     # sign the two sides round apart costs up to 2 lr, plus the rounding of
     # p +- lr in f32
@@ -639,18 +741,28 @@ def check_train_step(torch, rc, report):
             for n, p in getattr(states["cuda"].models, net).named_parameters())
         p_max = max(float(p.detach().abs().max()) for p in a.values())
         param_limit[net] = 2 * TRAIN_LR + 2 * torch.finfo(torch.float32).eps * p_max
-    report["train_step_check"].update({"rel_dev": rel, "grad_dev": grad_dev,
-                                       "max_param_dev": worst_param,
-                                       "launches": launches})
-    print(f"train step, card vs CPU (TrainConfig(), batch 2 x {CLIP}, f32, TF32 "
-          f"off): {launches} chain launches; rel dev " + ", ".join(
+    for net in untrained:
+        init = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                  torch.device("cpu"))
+        for (n, p), q in zip(getattr(states["cuda"].models, net).named_parameters(),
+                             getattr(init.models, net).parameters()):
+            if not torch.equal(p.detach().cpu(), q.detach()):
+                raise AssertionError(f"{label} {net}.{n}: moved without train_disc")
+    report[label].update({"rel_dev": rel, "grad_dev": grad_dev,
+                          "max_param_dev": worst_param, "launches": launches,
+                          "gates": {k: (v.tolist() if hasattr(v, "tolist") else v)
+                                    for k, v in (gates or {}).items()}})
+    print(f"{label}, card vs CPU (TrainConfig(), batch 2 x {CLIP}, f32, TF32 "
+          f"off, gates {gates or 'none'}): {launches} chain launches; rel dev " + ", ".join(
               f"{k} {v:.2e}" for k, v in rel.items())
           + "; worst leaf's gradient rel dev " + ", ".join(
               f"{k} {v[1]:.2e} ({v[0]}, limit {TRAIN_GRAD_TOL[k]:.0e})"
               for k, v in grad_dev.items())
           + "; max |param dev| " + ", ".join(
               f"{k} {v:.2e}" for k, v in worst_param.items())
-          + f" (lr {TRAIN_LR}) [{card}]")
+          + f" (lr {TRAIN_LR})" + "".join(
+              f"; {k} limit {v:.0e} (perceptual terms off)"
+              for k, v in norm_limit.items()) + f" [{card}]")
     for k, v in rel.items():
         if k in ("train/ber", "train/miou"):
             # thresholded decisions: two of the 32 bits, 1e-3 of MIoU
@@ -659,7 +771,8 @@ def check_train_step(torch, rc, report):
             if not dev <= limit:
                 raise AssertionError(f"train step {k}: card vs CPU {dev} > {limit}")
             continue
-        limit = TRAIN_NORM_TOL if k.startswith("grad_norm/") else 1e-4
+        limit = norm_limit.get(k, TRAIN_NORM_TOL if k.startswith("grad_norm/")
+                               else 1e-4)
         if not v <= limit:
             raise AssertionError(f"train step {k}: card vs CPU rel dev {v} > {limit}")
     for net, (name, v) in grad_dev.items():
@@ -955,6 +1068,299 @@ def time_training(torch, rc, report):
     return out
 
 
+# scripts/train_demo_r5.sh:61-91, the recipe that made the r5 checkpoint,
+# without --pallas (the port's kernel has no off switch on the card) and
+# without the run's directories, step count and log cadence
+R5_RECIPE = ["--batch-size", "16", "--no-remat"] + [a for kv in (
+    "train_duration=0.9", "sub_hop_jitter=true", "warmup.steps=6000",
+    "warmup.init_scale=0.01", "warmup.ber_gate=0.10", "warmup.fx_gate=0.12",
+    "warmup.disc_every=4", "warmup.alt_period=800", "warmup.alt_gen_frac=0.25",
+    "warmup.msg_freeze_gate=0.3", "warmup.msg_refreeze=true",
+    "warmup.nbits_start=4", "warmup.nbits_gate=0.02", "valid_freq=1000",
+    "sample_freq=10000", "Generator.film_gamma_bias=1.0",
+    "Generator.msg_mode=carrier", "Generator.film_carrier_gain=0.5",
+    "Generator.latent_carrier_gain=0.2", "AdamW.detector_lr_mult=10",
+    "AdamW.generator_lr_mult=2", "lambdas.dec/loss_clean=10000",
+    "lambdas.dec/loss_bits=20000") for a in ("--set", kv)]
+R5_SNAPSHOT = "weights/snapshots/demo_r5_latest.npz"
+R5_META = "weights/snapshots/demo_r5_latest_meta.json"
+R5_START = 11000
+R5_STEPS = 20
+# the snapshot's ramp: 0.01 ** (1 - 0.09316666666666606), the perceptual
+# scale the JAX run logged on every line from step 8249 to 11099
+R5_SCALE = 0.015357952969989128
+# train/ber of the JAX run's log from the snapshot's neighbourhood
+# (weights/snapshots/train_log_r5.jsonl: 0.26-0.38, mean 0.320); random
+# networks read about 0.5
+R5_BER_LIMIT = 0.40
+GATED_PERIOD = 8
+GATED_STEPS = 20
+
+
+def _log_lines(path):
+    return [json.loads(x) for x in Path(path).read_text().splitlines()]
+
+
+def _cli_launches(rc, steps, per_step):
+    """Chain launches of a CLI run: its steps, one validation (generator,
+    then detector and locator per row of the 8-effect sweep) and one
+    sample dump (generator)."""
+    gen = sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC)
+    det_loc = sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC + LOC_ENC)
+    return steps * per_step + gen + 8 * det_loc + gen
+
+
+def _recipe_per_step(rc):
+    """Chain launches of one recipe step (no remat): generator, detector on
+    the attacked and on the clean audio (lambdas.dec/loss_clean), locator."""
+    gen = sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC)
+    det = sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC)
+    loc = sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)
+    return gen + 2 * det + loc
+
+
+def check_r5_continuation(torch, rc, report):
+    """Controllers (i): the CLI's entry point under the r5 recipe from the
+    committed snapshot and its meta (step 11000, every latch open, 16
+    bits) for 20 steps: the start step, the restored perceptual scale on
+    every line, every latch open, 16 active bits, the discriminator
+    trained at every step, and train/ber inside the JAX run's band.
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from waveverify_torch.train.__main__ import main as train_main
+
+    card = card_line()
+    expected = _cli_launches(rc, R5_STEPS, _recipe_per_step(rc))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        train_main(["--ckpt-dir", tmp, "--init-weights", R5_SNAPSHOT,
+                    "--init-meta", R5_META, "--max-steps", str(R5_START + R5_STEPS),
+                    "--log-every", "1"] + R5_RECIPE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rc.resblock_chain.launches
+        lines = _log_lines(Path(tmp) / "train_log.jsonl")
+    steps = [r for r in lines if "loss" in r]
+    bers = [r["train/ber"] for r in steps]
+    step_s = [r["step_time"] for r in steps]
+    out = {"steps": [r["step"] for r in steps], "wall_s": wall,
+           "launches": launches, "expected_launches": expected,
+           "train_ber": bers, "mean_train_ber": float(np.mean(bers)),
+           "percep_scale": [r["ramp/percep_scale"] for r in steps],
+           "step_time_s": step_s, "first": steps[0], "last": steps[-1]}
+    report["r5_continuation"] = out
+    print(f"controllers (i): r5 continuation from step {steps[0]['step']}, "
+          f"{len(steps)} steps at batch 16 x 0.9 s (recipe flags) + 1 validation "
+          f"in {wall:.1f} s: {launches} chain launches (expected {expected}); "
+          f"train/ber mean {out['mean_train_ber']:.4f} (limit {R5_BER_LIMIT}; the JAX "
+          f"run 0.26-0.38, mean 0.320), min {min(bers):.4f} max {max(bers):.4f}; "
+          f"ramp/percep_scale {steps[0]['ramp/percep_scale']!r}; step_time (host "
+          f"clock, log) median of the last {len(step_s) - 3} "
+          f"{sorted(step_s[3:])[len(step_s[3:]) // 2] * 1e3:.3f} ms [{card}]")
+    if out["steps"] != list(range(R5_START, R5_START + R5_STEPS)):
+        raise AssertionError(f"r5 continuation logged steps {out['steps']}")
+    for r in lines:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"r5 continuation: non-finite {bad} at {r['step']}")
+    for r in steps:
+        if not abs(r["ramp/percep_scale"] - R5_SCALE) <= 1e-6 * R5_SCALE:
+            raise AssertionError(f"r5 step {r['step']}: percep_scale "
+                                 f"{r['ramp/percep_scale']} != {R5_SCALE}")
+        flags = (r["ramp/fx_on"], r["ramp/msg_on"], r["ramp/gen_on"],
+                 r["ramp/nbits_active"])
+        if flags != (1.0, 1.0, 1.0, 16.0):
+            raise AssertionError(f"r5 step {r['step']}: fx/msg/gen on, active "
+                                 f"bits {flags}")
+        if not (r["adv/disc_loss"] != 0 and r["grad_norm/discriminator"] > 0):
+            raise AssertionError(f"r5 step {r['step']}: the discriminator did not train")
+    if not out["mean_train_ber"] < R5_BER_LIMIT:
+        raise AssertionError(f"r5 continuation: mean train/ber "
+                             f"{out['mean_train_ber']} >= {R5_BER_LIMIT}")
+    if launches != expected:
+        raise AssertionError(f"r5 continuation: {launches} launches, expected {expected}")
+    return launches
+
+
+def check_gated_start(torch, rc, report):
+    """Controllers (ii): the CLI's entry point under the r5 recipe from
+    random init, with warmup.alt_period=8, for 20 steps: the alternation
+    ([0] * 6 + [1] * 2 per period), the discriminator's cadence (steps 0,
+    4, 8, 12, 16), identity-only attacks, 4 active bits, the message path
+    bit for bit at its init; then train() for 6 steps: every other
+    generator leaf is its init times AdamW's weight decay alone. Returns
+    the launches of the CLI run."""
+    import tempfile
+
+    import numpy as np
+
+    from waveverify_torch.train.__main__ import main as train_main
+    from waveverify_torch.train.__main__ import parse
+    from waveverify_torch.train.loop import train
+    from waveverify_torch.train.state import WEIGHT_DECAY, create_train_state, in_msg_path
+
+    card = card_line()
+    flags = R5_RECIPE + ["--set", f"warmup.alt_period={GATED_PERIOD}"]
+    cfg = parse(flags)[0]
+    init = create_train_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                              torch.device("cpu")).models.generator.state_dict()
+    expected = _cli_launches(rc, GATED_STEPS, _recipe_per_step(rc))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        train_main(["--ckpt-dir", tmp, "--max-steps", str(GATED_STEPS),
+                    "--log-every", "1"] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rc.resblock_chain.launches
+        lines = _log_lines(Path(tmp) / "train_log.jsonl")
+        meta = json.loads((Path(tmp) / "latest" / "meta.json").read_text())
+        final = torch.load(Path(tmp) / "latest" / "state.pt", map_location="cpu",
+                           weights_only=True)["models"]
+    steps = [r for r in lines if "loss" in r]
+    gen_on = [r["ramp/gen_on"] for r in steps]
+    disc_steps = [r["step"] for r in steps if r["adv/disc_loss"] != 0]
+    msg_keys = [k for k in init if in_msg_path(k)]
+    msg_same = all(torch.equal(final[f"generator.{k}"], init[k]) for k in msg_keys)
+    fed = sorted(meta["scheduler_state"]["effect_metrics_history"])
+
+    # six steps, all with the generator frozen by the alternation
+    with tempfile.TemporaryDirectory() as tmp:
+        _, trainer = parse(flags + ["--ckpt-dir", tmp, "--no-samples"])[:2]
+        state = train(cfg, trainer, max_steps=6)
+        torch.cuda.synchronize()
+        lr = cfg.optim.lr * cfg.optim.generator_lr_mult
+        factor = float(np.prod([1 - lr * cfg.optim.exp_gamma**t * WEIGHT_DECAY
+                                for t in range(6)]))
+        decay_dev = 0.0
+        for n, prm in state.models.generator.named_parameters():
+            want = init[n] if in_msg_path(n) else init[n] * factor
+            got = prm.detach().cpu()
+            dev = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+            if in_msg_path(n) and not torch.equal(got, want):
+                raise AssertionError(f"gated start: generator.{n} moved while frozen")
+            decay_dev = max(decay_dev, dev)
+        del state
+    out = {"wall_s": wall, "launches": launches, "expected_launches": expected,
+           "gen_on": gen_on, "disc_steps": disc_steps, "scheduler_fed": fed,
+           "msg_path_unchanged": msg_same, "msg_leaves": len(msg_keys),
+           "six_step_decay_factor": factor, "six_step_max_rel_dev": decay_dev}
+    report["gated_start"] = out
+    print(f"controllers (ii): gated start from random init, {len(steps)} steps "
+          f"(recipe flags, alt_period {GATED_PERIOD}) + 1 validation in {wall:.1f} s: "
+          f"{launches} chain launches (expected {expected}); gen_on "
+          f"{''.join(str(int(g)) for g in gen_on)}; the discriminator trained at "
+          f"{disc_steps}; scheduler fed {fed}; {len(msg_keys)} message-path leaves "
+          f"unchanged: {msg_same}; after 6 frozen steps the other generator leaves "
+          f"are init x {factor:.9f} within rel {decay_dev:.2e} [{card}]")
+    want_gen = [float(s % GATED_PERIOD >= GATED_PERIOD - 2) for s in range(GATED_STEPS)]
+    if [r["step"] for r in steps] != list(range(GATED_STEPS)):
+        raise AssertionError(f"gated start logged steps {[r['step'] for r in steps]}")
+    if gen_on != want_gen:
+        raise AssertionError(f"gated start: gen_on {gen_on}, expected {want_gen}")
+    if disc_steps != list(range(0, GATED_STEPS, 4)):
+        raise AssertionError(f"gated start: discriminator trained at {disc_steps}")
+    for r in steps:
+        state_flags = (r["ramp/fx_on"], r["ramp/msg_on"], r["ramp/percep_scale"],
+                       r["ramp/nbits_active"])
+        if state_flags != (0.0, 0.0, 0.0, 4.0):
+            raise AssertionError(f"gated start step {r['step']}: fx/msg on, scale, "
+                                 f"active bits {state_flags}")
+    if fed != ["identity"]:
+        raise AssertionError(f"gated start: the scheduler was fed {fed}")
+    if not msg_same:
+        raise AssertionError("gated start: a message-path leaf moved while frozen")
+    if not decay_dev <= 1e-6:
+        raise AssertionError(f"gated start: frozen generator leaves off weight decay "
+                             f"by rel {decay_dev}")
+    if launches != expected:
+        raise AssertionError(f"gated start: {launches} launches, expected {expected}")
+    return launches
+
+
+def time_controlled_steps(torch, rc, report):
+    """Controllers, times: recipe steps at batch 16 x 0.9 s without remat,
+    CUDA events per step, the inputs a run's controllers give: the r5
+    snapshot's (every gate open) and a gated start's (alt_period 8: the
+    discriminator on every 4th step), median after 3 warm-up steps, split
+    into steps with and without the discriminator; peak memory over the
+    steps after warm-up; launches per step."""
+    import statistics
+
+    import numpy as np
+
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.train.__main__ import parse
+    from waveverify_torch.train.loop import _identity_branch, make_controllers, step_inputs
+    from waveverify_torch.train.state import create_train_state
+
+    card = card_line()
+    out = {}
+    meta = json.loads((ROOT / R5_META).read_text())
+    for name, extra, start in (("r5", [], R5_START),
+                               ("gated", ["--set", f"warmup.alt_period={GATED_PERIOD}"], 0)):
+        cfg = parse(R5_RECIPE + extra)[0]
+        ramp, curr = make_controllers(cfg)
+        if name == "r5":
+            ramp.load_state_dict(meta["ramp_state"])
+            curr.load_state_dict(meta["nbits_state"])
+        state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                   torch.device("cuda"))
+        state.step = start
+        bank = EffectBank.default_train_bank()
+        per_step = []
+        for i in range(16):
+            if i == 3:  # peak memory over the steps after warm-up, as phase 6
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            x = step_inputs(start + i, ramp, curr, cfg.loss)
+            gates = dict(percep_scale=x.percep_scale, train_disc=x.train_disc,
+                         gen_update_scale=x.gen_update_scale,
+                         msg_update_scale=x.msg_update_scale, bit_mask=x.bit_mask)
+            batch = train_batch(cfg, bank, 16, start + i)
+            if not x.fx_on:  # the attack latch is closed: identity only
+                batch = (batch[0], batch[1],
+                         np.full_like(batch[2], _identity_branch(bank)), batch[3])
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            rc.resblock_chain.launches = 0
+            e0.record()
+            run_train_step(torch, state, cfg, bank, batch, "cuda", gates)
+            e1.record()
+            torch.cuda.synchronize()
+            per_step.append((x.train_disc, e0.elapsed_time(e1),
+                             rc.resblock_chain.launches))
+        on = [ms for disc, ms, _ in per_step[3:] if disc]
+        off = [ms for disc, ms, _ in per_step[3:] if not disc]
+        launches = sorted({n for _, _, n in per_step})
+        out[name] = {"ms": [ms for _, ms, _ in per_step],
+                     "disc": [d for d, _, _ in per_step],
+                     "median_ms": statistics.median([ms for _, ms, _ in per_step[3:]]),
+                     "median_ms_disc_on": statistics.median(on) if on else None,
+                     "median_ms_disc_off": statistics.median(off) if off else None,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_per_step": launches}
+        r = out[name]
+        print(f"controllers, {name} steps (batch 16 x 0.9 s, no remat, CUDA events, "
+              f"median after 3 warm-up): {r['median_ms']:.3f} ms/step; disc on "
+              + (f"{r['median_ms_disc_on']:.3f}" if on else "-") + " ms, disc off "
+              + (f"{r['median_ms_disc_off']:.3f}" if off else "-")
+              + f" ms; peak memory {r['peak_mem_gib']:.2f} GiB; chain launches per "
+              f"step {launches} [{card}]")
+        if launches != [_recipe_per_step(rc)]:
+            raise AssertionError(f"controllers {name}: launches per step {launches}, "
+                                 f"expected {_recipe_per_step(rc)}")
+        del state
+        torch.cuda.empty_cache()
+    report["controller_timing"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -992,16 +1398,16 @@ def main() -> int:
             r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes "
             r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
         io = "bf16" if "bfloat16" in entry else "f32"
-        nt, mt, minb = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi5E", entry).groups()
-        kernels_built.append({"io": io, "tiling": [int(nt), int(mt)],
+        nt, mt, minb, k = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()
+        kernels_built.append({"io": io, "tiling": [int(nt), int(mt)], "k": int(k),
                               "min_ctas_per_sm": int(minb), "registers": int(regs),
                               "spill_store_bytes": int(stores),
                               "spill_load_bytes": int(loads), "stack_bytes": int(stack)})
     report["ptxas"] = kernels_built
-    print("ptxas (NT x MT, min CTAs/SM: registers f32 / bf16): " + ", ".join(
-        f"{k['tiling'][0]}x{k['tiling'][1]},{k['min_ctas_per_sm']}: "
+    print("ptxas (NT x MT, min CTAs/SM, k: registers f32 / bf16): " + ", ".join(
+        f"{k['tiling'][0]}x{k['tiling'][1]},{k['min_ctas_per_sm']},k={k['k']}: "
         + " / ".join(str(j["registers"]) for j in kernels_built
-                     if j["tiling"] == k["tiling"])
+                     if (j["tiling"], j["k"]) == (k["tiling"], k["k"]))
         for k in kernels_built if k["io"] == "f32"))
     # every function of the log, the kernels' device functions included
     spilled = [(name[-60:], int(st), int(ld)) for name, st, ld in re.findall(
@@ -1009,7 +1415,7 @@ def main() -> int:
         r"stores, (\d+) bytes spill loads", ptxas) if int(st) or int(ld)]
     print(f"ptxas: {len(kernels_built)} kernels, spills (function, bytes stored, "
           f"loaded): {spilled or 'none'}")
-    if len(kernels_built) != 2 * len(rc._TILINGS):
+    if len(kernels_built) != 2 * len(rc._TILINGS) * len(rc.KERNEL_SIZES):
         raise AssertionError("ptxas log does not list every instantiation")
     if spilled:
         raise AssertionError("ptxas spilled registers in some instantiation")
@@ -1057,6 +1463,7 @@ def main() -> int:
           f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; gradients ok")
     print(f"kernel vs plain, f32 max |err| by width (limit {F32_DRIFT:.1e}, half of "
           "atol): " + ", ".join(f"C={c} {e:.2e}" for c, e in sorted(errs_by_width.items())))
+    check_routes(torch, rc, report)
     if "--kernel-only" in sys.argv[1:]:
         return 0
 
@@ -1289,6 +1696,24 @@ def main() -> int:
     path_launches["train_step"] = check_train_step(torch, rc, report)
     path_launches["train_cli"] = check_train_cli(torch, rc, report)
     time_training(torch, rc, report)
+    # 7. the training controllers: the r5 continuation, a gated start, two
+    # gated steps on the card against the CPU (every gate closed; the
+    # generator on with its message path frozen and 4 bits, so that every
+    # generator leaf is compared; its perceptual terms at full weight, as
+    # in phase 6, since a small scale leaves the generator's gradient to
+    # the ill-conditioned decoding path), the times
+    path_launches["r5_continuation"] = check_r5_continuation(torch, rc, report)
+    path_launches["gated_start"] = check_gated_start(torch, rc, report)
+    four_bits = (np.arange(16) < 4).astype(np.float32)
+    path_launches["gated_train_step"] = check_train_step(
+        torch, rc, report, label="gated_train_step_check",
+        gates=dict(percep_scale=0.0, train_disc=False, gen_update_scale=0.0,
+                   msg_update_scale=0.0, bit_mask=four_bits))
+    path_launches["msg_frozen_train_step"] = check_train_step(
+        torch, rc, report, label="msg_frozen_train_step_check",
+        gates=dict(percep_scale=1.0, train_disc=True, gen_update_scale=1.0,
+                   msg_update_scale=0.0, bit_mask=four_bits))
+    time_controlled_steps(torch, rc, report)
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 

@@ -303,10 +303,59 @@ def test_wrapper_rejects_widths_the_mma_tiles_cannot_take(c, ok):
             rc._check(x, ws, 1)
 
 
+@pytest.mark.parametrize("c", [24, 40])
+@pytest.mark.parametrize("product", ["f32", "tf32x3"])
+def test_padded_channels_leave_the_chain_unchanged(c, product):
+    """The kernel runs a width that is no multiple of 16 on zero-padded
+    channels: the first C channels of the padded chain are the chain's."""
+    x, ws, ps = _inputs(2, 50, c, 3, seed=c)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    wt = [torch.from_numpy(w) for w in ws]
+    xp, wp = rc.pad_channels(xt, wt)
+    assert xp.shape[1] == rc.padded_width(c) == -(-c // 16) * 16
+    kw = dict(prescales=ps, res_scale=RES_SCALE)
+    if product == "tf32x3":
+        kw["product"] = rc.pointwise_tf32x3
+    y = rc.resblock_chain_ref(xp, *wp, **kw)
+    assert torch.equal(y[:, c:], torch.zeros_like(y[:, c:]))
+    torch.testing.assert_close(y[:, :c], rc.resblock_chain_ref(xt, *wt, **kw),
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("m", [9, 10, 17])
+@pytest.mark.parametrize("c", [48, 256])
+def test_chain_plan_cuts_long_chains(c, m):
+    """A chain of more than 8 blocks runs in launches of at most 8."""
+    plan = rc.chain_plan(c, m, 5)
+    assert sum(blocks for blocks, _ in plan) == m
+    assert all(1 <= blocks <= rc._MAX_BLOCKS and t_tile > 0 for blocks, t_tile in plan)
+    assert rc.launches_per_chain(c, m) == len(plan) >= -(-m // rc._MAX_BLOCKS)
+
+
+@pytest.mark.parametrize("c,m", PLAN_SHAPES)
+def test_chain_plan_follows_k3(c, m):
+    """At k = 3 the halo is 4 rows per block: the slabs still fit and the
+    tiles start on multiples of 4 (the kernel's vector loads)."""
+    plan = rc.chain_plan(c, m, 3)
+    assert sum(blocks for blocks, _ in plan) == m
+    for blocks, t_tile in plan:
+        rows = blocks * 4 + t_tile
+        assert t_tile > 0 and t_tile % 4 == 0 and rows % 16 == 0
+        assert rc.slab_bytes(c, rows) <= rc._SMEM_FULL
+
+
+# chains the kernel takes off the shipped configs: (T, C, M, k); C = 24 and
+# 40 run on padded channels, M = 10 in two launches
+OFF_CONFIG_CHAINS = [(500, 40, 10, 5), (500, 24, 10, 5), (1000, 64, 2, 3),
+                     (400, 256, 2, 3)]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this check on the card")
+    from waveverify_torch.modules import seanet as tseanet
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for t, c, m in [(1000, 64, 2), (131, 96, 3), (400, 768, 3)]:
@@ -316,4 +365,30 @@ def test_kernel_matches_plain_version_on_card():
         y = rc.resblock_chain(xt, *wt, prescales=ps, res_scale=RES_SCALE)
         ref = rc.resblock_chain_ref(xt, *wt, prescales=ps, res_scale=RES_SCALE)
         torch.cuda.synchronize()
+        torch.testing.assert_close(y, ref, atol=2e-5, rtol=1e-5)
+    # through the seanet gate: C = 1024 runs the plain path, the others the
+    # kernel, each against the plain version
+    for t, c, m, k in [(200, 1024, 3, 5)] + OFF_CONFIG_CHAINS:
+        gen = torch.Generator().manual_seed(c)
+        blocks = [tseanet.SEANetResnetBlock(c, kernel_size=k, res_scale=RES_SCALE,
+                                            idx=j + 1) for j in range(m)]
+        x = torch.randn(2, c, t, generator=gen).cuda()
+        with torch.no_grad():
+            for p in (p for blk in blocks for p in blk.parameters()):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            blocks = [blk.cuda() for blk in blocks]
+            before = rc.resblock_chain.launches
+            y = tseanet._apply_resblock_chain(blocks, x)
+            launches = rc.resblock_chain.launches - before
+            if c > rc.MAX_CHANNELS:
+                ref = x
+                for blk in blocks:
+                    ref = blk(ref)
+            else:
+                ref = rc.resblock_chain_ref(
+                    x, *tseanet._chain_weights(blocks, x.dtype),
+                    prescales=[b.prescale for b in blocks], res_scale=RES_SCALE)
+        torch.cuda.synchronize()
+        expected = 0 if c > rc.MAX_CHANNELS else rc.launches_per_chain(c, m, k)
+        assert launches == expected, (t, c, m, k, launches)
         torch.testing.assert_close(y, ref, atol=2e-5, rtol=1e-5)

@@ -151,20 +151,76 @@ def test_chain_weights_cached_until_a_parameter_changes():
         torch.testing.assert_close(a.detach(), b, atol=0, rtol=0)
 
 
-def test_chain_gate_is_structural_only(monkeypatch):
-    """A chain wider than the kernel takes still goes to the fused path; the
-    kernel's wrapper, not the gate, rejects it on the card."""
+def _fused_calls(monkeypatch):
+    """A list that gains an entry at every call of the fused chain."""
     calls = []
     fused = tseanet.fused_resblock_chain
     monkeypatch.setattr(tseanet, "fused_resblock_chain",
                         lambda *a, **k: calls.append(1) or fused(*a, **k))
+    return calls
+
+
+def test_chain_gate_is_structural_only(monkeypatch):
+    """Besides the blocks' shape, the gate looks only at the width: a chain
+    wider than the kernel takes (768) runs block by block in plain PyTorch,
+    as the JAX package's gate sends it to XLA; it never reaches the
+    kernel's wrapper, which would raise on the card."""
+    calls = _fused_calls(monkeypatch)
     blocks = _random_blocks(800)
     x = torch.randn(1, 800, 12, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
-        fused_y = tseanet._apply_resblock_chain(blocks, x)
+        gated_y = tseanet._apply_resblock_chain(blocks, x)
         eager_y = blocks[1](blocks[0](x))
-    assert calls == [1]
-    torch.testing.assert_close(fused_y, eager_y, atol=1e-4, rtol=1e-4)
+    assert calls == []
+    torch.testing.assert_close(gated_y, eager_y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("c,kernel", [(768, True), (1024, False)])
+def test_chain_route_matches_jax_gate(monkeypatch, c, kernel):
+    """The port sends a chain to the kernel exactly where the JAX package's
+    gate (``can_fuse``) sends it to its Pallas kernel: up to 768 channels."""
+    from waveverify_tpu.ops.pallas_kernels import can_fuse
+
+    t = 64
+    assert can_fuse(t, c, 5, m=2) == kernel
+    calls = _fused_calls(monkeypatch)
+    blocks = _random_blocks(c)
+    x = torch.randn(1, c, t, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        routed = tseanet._apply_resblock_chain(blocks, x)
+        eager = blocks[1](blocks[0](x))
+    assert calls == ([1] if kernel else [])
+    torch.testing.assert_close(routed, eager, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_filters,k", [(128, 5), (8, 3)])
+def test_encoder_off_the_shipped_widths_matches_jax(monkeypatch, n_filters, k):
+    """``channels_enc: 128`` (chains at C = 128 ... 1024: the widest runs the
+    plain path) and ``residual_kernel_size: 3`` (every chain on the fused
+    path, as in the JAX package) against the JAX encoder, at a tiny depth."""
+    calls = _fused_calls(monkeypatch)
+    rng = np.random.RandomState(3)
+    ratios = (2, 2, 2, 2)
+    audio = (rng.randn(2, 16 * 6 + 5, 1) * 0.1).astype(np.float32)
+    msg = rng.randint(0, 2, (2, 16)).astype(np.float32)
+    kw = dict(SMALL, residual_kernel_size=k)
+    kw.update(dimension=32, n_filters=n_filters, n_residual_layers=1,
+              ratios=ratios, l2norm=True, spec_compression="log",
+              res_scale=0.577)
+    jenc = jseanet.SEANetEncoder(**kw)
+    params = jax.jit(jenc.init)(jax.random.PRNGKey(0), jnp.asarray(audio),
+                                jnp.asarray(msg))["params"]
+    flat = _randomize(params, 4)
+    z_j = np.asarray(jax.jit(jenc.apply)({"params": _unflatten(flat)},
+                                         jnp.asarray(audio), jnp.asarray(msg)))
+    tenc = tseanet.SEANetEncoder(**kw)
+    load_params(tenc, {f"e/{k_}": v for k_, v in flat.items()}, "e")
+    with torch.no_grad():
+        z_t = tenc(torch.from_numpy(audio.transpose(0, 2, 1).copy()),
+                   torch.from_numpy(msg)).numpy().transpose(0, 2, 1)
+    widths = [n_filters * 2**i for i in range(len(ratios))]
+    assert len(calls) == sum(w <= 768 for w in widths)
+    np.testing.assert_allclose(z_t, z_j, atol=1e-4, rtol=1e-4)
 
 
 def test_encoder_carriers_are_fixed_buffers():

@@ -1,7 +1,8 @@
 """The port's training step against the JAX package at a tiny size, f32 on
-the CPU: the composite forward, one whole train step, the optimizer alone,
-the validation step; and within the port, remat on vs off and the chain
-weight cache across an optimizer step."""
+the CPU: the composite forward, one whole train step, the same step under
+the training controllers' inputs, the optimizer alone, the validation
+step; and within the port, remat on vs off and the chain weight cache
+across an optimizer step."""
 
 import copy
 import dataclasses
@@ -437,3 +438,200 @@ def test_chain_cache_sees_optimizer_step():
         fresh = copy.deepcopy(state.models).apply_generator(a, m)
     assert not torch.equal(before, after)
     torch.testing.assert_close(after, fresh, rtol=0, atol=0)
+
+
+# the controllers' inputs of one step (train/loop.py step_inputs): every
+# gate closed, as a fresh r5-recipe run starts; the discriminator on with
+# the message path frozen (a squeezing ramp's scale); the generator on and
+# the discriminator off, 8 bits active
+GATES = {
+    "closed": dict(percep_scale=0.0, train_disc=False, gen_update_scale=0.0,
+                   msg_update_scale=0.0, n_bits=4),
+    "disc_on_msg_frozen": dict(percep_scale=0.015357952969989128,
+                               train_disc=True, gen_update_scale=1.0,
+                               msg_update_scale=0.0, n_bits=4),
+    "gen_on_disc_off": dict(percep_scale=0.3, train_disc=False,
+                            gen_update_scale=1.0, msg_update_scale=1.0,
+                            n_bits=8),
+}
+
+
+@pytest.fixture(scope="module")
+def gated_steps(setup):
+    """For each entry of GATES, JAX ``make_train_step``'s step (compiled
+    once: the five inputs are traced) and the port's, from the same
+    parameters, draws and inputs."""
+    jcfg, tcfg, jmodels, jstate, _ = setup
+    audio, msg, idx = _inputs()
+    jstep = jax.jit(make_train_step(jmodels, jcfg, JBank(BANK)))
+    bank = EffectBank(BANK)
+    d = jax_draws(KEY, 0, B, T, len(BANK), bank.noise_branches)
+    out = {}
+    for name, g in GATES.items():
+        mask = (np.arange(16) < g["n_bits"]).astype(np.float32)
+        jnew, jm = jstep(jstate, audio, msg, idx, KEY,
+                         np.float32(g["percep_scale"]), np.bool_(g["train_disc"]),
+                         np.float32(g["gen_update_scale"]),
+                         np.float32(g["msg_update_scale"]), mask)
+        state = create_train_state(tcfg, torch.Generator().manual_seed(0),
+                                   torch.device("cpu"))
+        tm = train_step(state, tcfg, bank, torch.from_numpy(audio),
+                        torch.from_numpy(msg), idx, d,
+                        percep_scale=g["percep_scale"], train_disc=g["train_disc"],
+                        gen_update_scale=g["gen_update_scale"],
+                        msg_update_scale=g["msg_update_scale"],
+                        bit_mask=torch.from_numpy(mask))
+        out[name] = (jnew, jm, state, tm)
+    return out
+
+
+@pytest.fixture(scope="module")
+def gated_jax_grads(setup, one_step, jax_grads):
+    """For each entry of GATES, JAX's gradients of the gated step's
+    generator total, built from the JAX package's functions as
+    ``make_train_step`` gates them: ``percep_scale`` on the perceptual and
+    adversarial terms, the adversarial terms only with ``train_disc``
+    (against the updated discriminator), ``bit_mask`` in the decoding
+    loss; the generator's clipped, then multiplied by ``gen_update_scale``
+    and its message path's by ``msg_update_scale``. The discriminator's are
+    the ungated step's (its update does not see the gates). One compile."""
+    jcfg, _, jmodels, jstate, _ = setup
+    lc = jcfg.loss
+    audio, msg, idx = map(jnp.asarray, _inputs())
+    k_fwd, _ = jax.random.split(jax.random.fold_in(KEY, 0))
+    jbank = JBank(BANK)
+    jnew = one_step[0]
+
+    def g_loss(wm, percep, adv_on, mask):
+        outs = jforward_train(jmodels, wm, k_fwd, audio, msg, idx, jbank,
+                              window_duration=jcfg.window_duration, remat=False)
+        w = outs["watermarked"]
+        adv = jax.lax.cond(adv_on, lambda w_: jgenerator_loss(
+            lambda x: jmodels.apply_discriminator(jnew.disc_params, x), w_,
+            audio)[0], lambda w_: jnp.float32(0.0), w)
+        return (percep * (lc.lambda_stft * jstft_loss(
+                    w, audio, window_lengths=lc.stft_window_lengths)
+                + lc.lambda_mel * jmel_loss(
+                    w, audio, n_mels=lc.mel_n_mels,
+                    window_lengths=lc.mel_window_lengths,
+                    clamp_eps=lc.mel_clamp_eps, mag_weight=lc.mel_mag_weight,
+                    pow=lc.mel_pow)
+                + lc.lambda_waveform * jl1_loss(w, audio)
+                + lc.lambda_adv_gen * adv)
+                + lc.lambda_dec * jdecoding_loss(outs["detector_logits"],
+                                                 outs["mask"], msg, bit_mask=mask)
+                + lc.lambda_loc * jlocalization_loss(outs["locator_logits"],
+                                                     outs["mask"]))
+
+    grad_fn = jax.jit(jax.value_and_grad(g_loss))
+    out = {}
+    for name, g in GATES.items():
+        mask = jnp.asarray((np.arange(16) < g["n_bits"]).astype(np.float32))
+        val, grads = grad_fn(jstate.wm_params, np.float32(g["percep_scale"]),
+                             np.bool_(g["train_disc"]), mask)
+        gen, _ = jclip(grads["generator"], 10.0)
+        gen = {k: v * g["gen_update_scale"] * (
+            g["msg_update_scale"] if any(p.startswith(("msg_", "film_"))
+                                         for p in k.split("/")) else 1.0)
+            for k, v in _flatten(gen).items()}
+        flat = {net: {k: np.asarray(v) for k, v in _flatten(grads[net]).items()}
+                for net in ("detector", "locator")}
+        flat["generator"] = {k: np.asarray(v) for k, v in gen.items()}
+        flat["discriminator"] = {k: np.asarray(v) for k, v in
+                                 _flatten(jax_grads[0]["discriminator"]).items()}
+        out[name] = (float(val), flat)
+    return out
+
+
+@pytest.mark.parametrize("gate", sorted(GATES))
+@pytest.mark.parametrize("name", LOSSES)
+def test_gated_step_losses_match_jax(gated_steps, gated_jax_grads, gate, name):
+    """The step under the controllers' inputs: each loss as JAX's step
+    reports it (the adversarial ones 0 without the discriminator); the
+    total also equals the gated loss the gradients below differentiate."""
+    _, jm, _, tm = gated_steps[gate]
+    assert _rel(tm[name], jm[name]) <= 1e-4, (name, float(tm[name]), float(jm[name]))
+    if name == "loss":
+        assert _rel(gated_jax_grads[gate][0], jm["loss"]) <= 1e-4
+    if name in ("adv/gen_loss", "adv/feat_loss", "adv/disc_loss") and not (
+            GATES[gate]["train_disc"]):
+        assert float(tm[name]) == float(jm[name]) == 0.0
+
+
+@pytest.mark.parametrize("gate", sorted(GATES))
+@pytest.mark.parametrize("net", NETS)
+def test_gated_step_grads_match_jax(gated_steps, gated_jax_grads, gate, net):
+    """The gradients each network's update took, leaf by leaf, against
+    JAX's gated gradients (GRAD_TOL); without ``train_disc`` the
+    discriminator takes none and stays as it was, in both packages."""
+    jnew, _, state, _ = gated_steps[gate]
+    module = getattr(state.models, net)
+    if net == "discriminator" and not GATES[gate]["train_disc"]:
+        assert all(p.grad is None for p in module.parameters())
+        init = export_params(create_train_state(
+            tiny_configs(B)[1], torch.Generator().manual_seed(0),
+            torch.device("cpu")).models.discriminator, "d")
+        ours = export_params(module, "d")
+        ref = {f"d/{k}": np.asarray(v) for k, v in _flatten(jnew.disc_params).items()}
+        for k in init:
+            np.testing.assert_array_equal(ours[k], init[k], err_msg=k)
+            np.testing.assert_array_equal(ref[k], init[k], err_msg=k)
+        return
+    ours = export_grads(module)
+    ref = gated_jax_grads[gate][1][net]
+    assert set(ours) == set(ref)
+    dev = {k: float(np.linalg.norm(ours[k] - ref[k]))
+           / max(float(np.linalg.norm(ref[k])), 1e-30) for k in ref}
+    worst = max(dev, key=dev.get)
+    assert dev[worst] <= GRAD_TOL[net], (worst, dev[worst])
+
+
+@pytest.mark.parametrize("gate", sorted(GATES))
+def test_gated_step_params_within_2lr(gated_steps, gate):
+    """Every parameter after the gated step within 2 lr of JAX's."""
+    jnew, _, state, _ = gated_steps[gate]
+    for net in NETS:
+        ours = export_params(getattr(state.models, net), net)
+        tree = jnew.disc_params if net == "discriminator" else jnew.wm_params[net]
+        ref = {f"{net}/{k}": np.asarray(v) for k, v in _flatten(tree).items()}
+        assert set(ours) == set(ref)
+        worst = max(float(np.abs(ours[k] - ref[k]).max()) for k in ours)
+        assert worst <= 2e-4, (net, worst)
+
+
+def _msg_leaf(key):
+    return any(p.startswith(("msg_", "film_")) for p in key.split("/"))
+
+
+def test_frozen_generator_only_decays(setup, gated_steps):
+    """gen_update_scale = 0 from fresh moments: AdamW sees zero gradients,
+    so each generator leaf is its start times (1 - lr wd) where it takes
+    weight decay and unchanged where it does not (the message path), in
+    the port bit for bit and in JAX within f32 rounding."""
+    _, tcfg, _, _, init = setup
+    jnew, _, state, _ = gated_steps["closed"]
+    lr = tcfg.optim.lr * tcfg.optim.generator_lr_mult
+    p0 = export_params(init.models.generator, "g")
+    ours = export_params(state.models.generator, "g")
+    ref = {f"g/{k}": np.asarray(v) for k, v in _flatten(jnew.wm_params["generator"]).items()}
+    assert any(_msg_leaf(k) for k in p0) and not all(_msg_leaf(k) for k in p0)
+    for k, v in p0.items():
+        want = v if _msg_leaf(k) else (torch.from_numpy(v) * (1 - lr * 0.01)).numpy()
+        np.testing.assert_array_equal(ours[k], want, err_msg=k)
+        np.testing.assert_allclose(ref[k], want, rtol=1e-6, atol=0, err_msg=k)
+
+
+def test_frozen_message_path_is_unchanged(setup, gated_steps):
+    """msg_update_scale = 0: the generator's msg_* / film_* leaves keep
+    their values bit for bit in both packages while the rest of it moves."""
+    _, _, _, _, init = setup
+    jnew, _, state, _ = gated_steps["disc_on_msg_frozen"]
+    p0 = export_params(init.models.generator, "g")
+    ours = export_params(state.models.generator, "g")
+    ref = {f"g/{k}": np.asarray(v) for k, v in _flatten(jnew.wm_params["generator"]).items()}
+    for k, v in p0.items():
+        if _msg_leaf(k):
+            np.testing.assert_array_equal(ours[k], v, err_msg=k)
+            np.testing.assert_array_equal(ref[k], v, err_msg=k)
+    moved = [k for k in p0 if not _msg_leaf(k) and not np.array_equal(ours[k], p0[k])]
+    assert len(moved) == sum(not _msg_leaf(k) for k in p0)

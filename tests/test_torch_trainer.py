@@ -1,8 +1,10 @@
 """The port's trainer on the CPU at a tiny size: the CLI end to end (JSONL
 log, checkpoints, samples), its weights file read by the port's WaveVerify
 and by the JAX package's load_weights_npz, --resume, a warm start, the
-options it does not implement raising, and the configuration's YAML
-reader."""
+training controllers under the r5 recipe's knobs (their log keys, their
+states in the checkpoint meta, read by the JAX package's classes), the
+r5 snapshot's restore by --init-meta, --reinit-msg-path, the options it
+does not implement raising, and the configuration's YAML reader."""
 
 import json
 import subprocess
@@ -14,16 +16,21 @@ import pytest
 import torch
 
 from waveverify_tpu.convert import load_weights_npz
+from waveverify_tpu.effects.effects_config import load_effects_config as jload_effects
+from waveverify_tpu.effects.scheduler import EffectScheduler as JScheduler
+from waveverify_tpu.train.loop import BerGatedRamp as JRamp
+from waveverify_tpu.train.loop import NbitsCurriculum as JCurriculum
 from waveverify_tpu.config import TrainConfig as JTrainConfig
 from waveverify_tpu.config import load_config as jload_config
 from waveverify_tpu.train.watermarking import WatermarkModels as JModels
 from waveverify_torch import WaveVerify
-from waveverify_torch.config import LossConfig, TrainConfig, load_config
+from waveverify_torch.config import TrainConfig, load_config
 from waveverify_torch.train.__main__ import main
-from waveverify_torch.train.checkpoint import load_weights
+from waveverify_torch.train.checkpoint import load_weights, save_weights
 from waveverify_torch.train.data import SyntheticAudioDataset, prefetch_batches
 from waveverify_torch.train.loop import TrainerConfig, train
 from waveverify_torch.train.state import create_train_state
+from waveverify_torch.weights import export_params, read_npz
 
 torch.set_num_threads(2)
 
@@ -166,22 +173,167 @@ def test_warm_start_loads_the_weights(run, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--num-devices", "2"], ["--steps-per-dispatch", "4"], ["--split-disc"],
-    ["--init-meta", "meta.json"], ["--reinit-msg-path"], ["--tensorboard", "tb"],
-    ["--wandb", "proj"], ["--profile-steps", "1:3"]])
+    ["--tensorboard", "tb"], ["--wandb", "proj"], ["--profile-steps", "1:3"]])
 def test_unsupported_flags_raise_naming_themselves(tmp_path, flag):
     with pytest.raises(ValueError, match=flag[0]):
         main(_args(tmp_path, "--max-steps", "1", *flag))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("warmup_steps", 100), ("warmup_ber_gate", 0.2), ("warmup_disc_every", 4),
-    ("warmup_alt_period", 50), ("warmup_msg_freeze_gate", 0.1),
-    ("warmup_msg_refreeze", True), ("warmup_nbits_start", 4),
-    ("warmup_fx_gate", 0.3), ("warmup_init_scale", 0.1)])
-def test_unsupported_warmup_knobs_raise(tmp_path, field, value):
-    cfg = TrainConfig(loss=LossConfig(**{field: value}))
-    with pytest.raises(ValueError, match=field):
-        train(cfg, TrainerConfig(ckpt_dir=str(tmp_path), device="cpu"), max_steps=1)
+R5_META = "weights/snapshots/demo_r5_latest_meta.json"
+# the warmup knobs of scripts/train_demo_r5.sh
+R5_WARMUP = dict(steps=6000, init_scale=0.01, ber_gate=0.10, fx_gate=0.12,
+                 disc_every=4, alt_period=800, alt_gen_frac=0.25,
+                 msg_freeze_gate=0.3, msg_refreeze="true", nbits_start=4,
+                 nbits_gate=0.02)
+R5_SETS = [a for k, v in R5_WARMUP.items() for a in ("--set", f"warmup.{k}={v}")]
+RAMP_KEYS = ("ramp/percep_scale", "ramp/ber_ema", "ramp/fx_on", "ramp/msg_on",
+             "ramp/gen_on", "ramp/nbits_active", "bits/acc_min_active")
+
+
+def _jax_controllers(cfg):
+    lc = cfg.loss
+    ramp = JRamp(lc.warmup_steps, lc.warmup_init_scale, lc.warmup_ber_gate,
+                 fx_gate=lc.warmup_fx_gate,
+                 msg_freeze_gate=lc.warmup_msg_freeze_gate,
+                 msg_refreeze=lc.warmup_msg_refreeze, nbits=16)
+    return ramp, JCurriculum(16, lc.warmup_nbits_start, lc.warmup_nbits_gate)
+
+
+@pytest.fixture(scope="module")
+def controlled(tmp_path_factory):
+    """Three steps of the CLI from random init under the r5 recipe's
+    warmup knobs: every gate closed, 4 bits active."""
+    tmp = tmp_path_factory.mktemp("controlled")
+    main(_args(tmp, "--max-steps", "3", "--no-samples", *R5_SETS))
+    return tmp
+
+
+def test_controllers_log_the_jax_keys(controlled):
+    lines = [r for r in _log(controlled) if "loss" in r]
+    assert [r["step"] for r in lines] == [0, 1, 2]
+    for r in lines:
+        assert all(k in r for k in RAMP_KEYS), sorted(r)
+        assert (r["ramp/percep_scale"], r["ramp/fx_on"], r["ramp/msg_on"],
+                r["ramp/gen_on"], r["ramp/nbits_active"]) == (0.0, 0.0, 0.0, 0.0, 4.0)
+    # the discriminator trains every 4th step while the ramp is closed
+    assert [r["adv/disc_loss"] != 0 for r in lines] == [True, False, False]
+
+
+def test_port_meta_restores_the_jax_controllers(controlled, tmp_path):
+    """The port's checkpoint meta holds the controllers under the JAX
+    loop's keys: the JAX package's classes load them equal, and --resume
+    restores them (the last step's feedback reaches only the scheduler,
+    so a one-step resumed run saves the states it restored)."""
+    import shutil
+
+    meta = json.loads((controlled / "run" / "latest" / "meta.json").read_text())
+    assert meta["ramp_state"]["ema"] != 0.5  # two steps of feedback
+    cfg = load_config(controlled / "tiny.yml",
+                      {f"warmup.{k}": v for k, v in R5_WARMUP.items()})
+    jramp, jcurr = _jax_controllers(cfg)
+    jramp.load_state_dict(meta["ramp_state"])
+    jcurr.load_state_dict(meta["nbits_state"])
+    assert jramp.state_dict() == meta["ramp_state"]
+    assert jcurr.state_dict() == meta["nbits_state"]
+    jsched = JScheduler(jload_effects().effect_param_grid)
+    jsched.load_state_dict(meta["scheduler_state"])
+    assert jsched.state_dict() == meta["scheduler_state"]
+    # while the attack latch is closed the scheduler saw the identity only
+    assert set(meta["scheduler_state"]["effect_metrics_history"]) == {"identity"}
+    shutil.copytree(controlled / "run", tmp_path / "run")
+    (tmp_path / "tiny.yml").write_text(TINY_YAML)
+    main(_args(tmp_path, "--max-steps", "4", "--resume", "--no-samples", *R5_SETS))
+    resumed = json.loads((tmp_path / "run" / "latest" / "meta.json").read_text())
+    assert resumed["step"] == 4
+    assert resumed["ramp_state"] == meta["ramp_state"]
+    assert resumed["nbits_state"] == meta["nbits_state"]
+
+
+def test_init_meta_continues_the_r5_snapshot(run, tmp_path):
+    """--init-weights with --init-meta of the r5 snapshot: the run starts
+    at its step, 11000, with its ramp (the perceptual scale the JAX run
+    logged) and all 16 bits active."""
+    (tmp_path / "tiny.yml").write_text(TINY_YAML)
+    weights = run / "run" / "latest" / "weights.npz"
+    main(_args(tmp_path, "--max-steps", "11002", "--no-samples",
+               "--init-weights", str(weights), "--init-meta", R5_META, *R5_SETS))
+    lines = [r for r in _log(tmp_path) if "loss" in r]
+    assert [r["step"] for r in lines] == [11000, 11001]
+    first = lines[0]
+    assert first["ramp/percep_scale"] == 0.015357952969989128
+    assert first["ramp/nbits_active"] == 16.0
+    assert (first["ramp/fx_on"], first["ramp/msg_on"], first["ramp/gen_on"]) == (
+        1.0, 1.0, 1.0)
+    assert all(r["adv/disc_loss"] != 0 for r in lines)
+    meta = json.loads((tmp_path / "run" / "latest" / "meta.json").read_text())
+    assert meta["step"] == 11002
+
+
+def _msg_key(key):
+    """JAX's ``_graft_msg`` predicate on a '/'-joined flax path."""
+    return any(part.startswith(("msg_", "film_")) for part in key.split("/"))
+
+
+@pytest.fixture(scope="module")
+def shifted_weights(run, tmp_path_factory):
+    """A weights file of the tiny networks that differs from the seed-0
+    init in every entry."""
+    cfg = load_config(run / "tiny.yml")
+    state = create_train_state(cfg, torch.Generator().manual_seed(5),
+                               torch.device("cpu"))
+    with torch.no_grad():
+        for p in state.models.parameters():
+            p.add_(1.0)
+    return save_weights(state.models, tmp_path_factory.mktemp("w") / "w.npz", cfg)
+
+
+def _flat_params(state):
+    out = {}
+    for net in ("generator", "detector", "locator"):
+        out.update(export_params(getattr(state.models, net), net))
+    return out
+
+
+def test_reinit_msg_path_grafts_what_jax_grafts(run, shifted_weights, tmp_path):
+    """--reinit-msg-path replaces exactly the leaves JAX's graft selects
+    (any path part starting with msg_ or film_, in all three networks) with
+    the fresh init, and keeps the warm start everywhere else."""
+    cfg = load_config(run / "tiny.yml")
+    state = train(cfg, TrainerConfig(ckpt_dir=str(tmp_path), device="cpu",
+                                     init_weights=str(shifted_weights),
+                                     reinit_msg_path=True, dump_samples=False),
+                  max_steps=0)
+    got = _flat_params(state)
+    loaded, _ = read_npz(shifted_weights)
+    fresh = _flat_params(create_train_state(cfg, torch.Generator().manual_seed(0),
+                                            torch.device("cpu")))
+    changed = {k for k in got if not np.array_equal(got[k], loaded[k].astype(np.float32))}
+    assert changed == {k for k in got if _msg_key(k)}
+    assert {k.split("/")[0] for k in changed} >= {"generator"}
+    for k in changed:
+        np.testing.assert_array_equal(got[k], fresh[k], err_msg=k)
+
+
+def test_reinit_msg_path_is_skipped_after_resume(run, shifted_weights, tmp_path):
+    import shutil
+
+    shutil.copytree(run / "run", tmp_path / "run")
+    cfg = load_config(run / "tiny.yml")
+    state = train(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "run"), device="cpu",
+                                     init_weights=str(shifted_weights),
+                                     reinit_msg_path=True, dump_samples=False),
+                  max_steps=3, resume=True)
+    saved = torch.load(tmp_path / "run" / "latest" / "state.pt",
+                       weights_only=True)["models"]
+    fresh = create_train_state(cfg, torch.Generator().manual_seed(0),
+                               torch.device("cpu")).models.state_dict()
+    assert state.step == 3
+    msg = [k for k in saved if any(part.startswith(("msg_", "film_"))
+                                   for part in k.split("."))]
+    # the graft would have put back the fresh init, which three steps moved
+    assert any(not torch.equal(saved[k], fresh[k]) for k in msg)
+    for k, v in state.models.state_dict().items():
+        assert torch.equal(v, saved[k]), k
 
 
 def test_cuda_default_raises_without_a_card(tmp_path):
@@ -215,6 +367,38 @@ def test_config_needs_no_yaml_unless_a_file_is_read():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK") and "PyYAML" in out.stdout
+
+
+def test_set_values_read_the_same_without_yaml():
+    """--set values read the same with PyYAML and without it: one reader
+    takes every scalar (the r5 recipe's and the cases where YAML's own
+    reading is unlike Python's), and only a list or mapping needs PyYAML,
+    raising without it."""
+    sets = [f"{k}={v}" for k, v in R5_WARMUP.items()] + [
+        "Generator.msg_mode=carrier", "AdamW.lr=2e-4", "sub_hop_jitter=true",
+        "lambdas.dec/loss_bits=20000", "Generator.film_carrier_gain=0.5",
+        "a=0x10", "b=.inf", "c='0.5'", 'd="x"', "e=tRuE", "f=~", "g=-3"]
+    program = ("import sys, json, argparse\n"
+               "{block}"
+               "from waveverify_torch.train.__main__ import _parse_set\n"
+               f"print(json.dumps(_parse_set({sets!r}, argparse.ArgumentParser())))\n"
+               "try:\n"
+               "    _parse_set(['strides=[2, 4]'], argparse.ArgumentParser())\n"
+               "    print('list read')\n"
+               "except ImportError:\n"
+               "    print('list refused')\n")
+    outs = []
+    for block in ("", "sys.modules['yaml'] = None\n"):
+        out = subprocess.run([sys.executable, "-c", program.format(block=block)],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        outs.append(out.stdout.splitlines())
+    assert outs[0][0] == outs[1][0]
+    got = json.loads(outs[0][0])
+    assert got["msg_refreeze"] is True and got["AdamW.lr"] == 2e-4
+    assert [got[k] for k in "abcdefg"] == ["0x10", ".inf", "0.5", "x", True,
+                                           None, -3]
+    assert (outs[0][1], outs[1][1]) == ("list read", "list refused")
 
 
 def test_resume_refuses_an_orbax_checkpoint(tmp_path):

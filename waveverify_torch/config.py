@@ -182,10 +182,10 @@ class LossConfig:
     """Loss weights and spectral-loss settings (conf/base.yml ``lambdas``,
     ``MultiScaleSTFTLoss``, ``MelSpectrogramLoss``).
 
-    The ``warmup_*`` knobs drive the JAX trainer's host controllers (the
-    BER-gated ramp, the nbits curriculum, alternation and the message
-    freeze); the port's trainer raises on any of them set away from its
-    default. ``lambda_dec_clean`` adds a decoding loss on the clean
+    The ``warmup_*`` knobs drive the trainer's host controllers
+    (``train/loop.py``: the BER-gated ramp, the nbits curriculum,
+    alternation, the discriminator's cadence and the message freeze);
+    ``warmup_steps`` alone is the step-indexed ramp. ``lambda_dec_clean`` adds a decoding loss on the clean
     watermarked audio, ``lambda_dec_bits`` a BCE on the masked time-mean
     logit, ``lambda_dec_lowband`` the same pair on a lowpassed copy."""
 

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernels _resblock_kernel_tbc / _resblock_kernel
 // (waveverify_tpu/ops/pallas_kernels.py, launched by _pallas_forward_tbc and
-// _pallas_forward). For M blocks i = 0..M-1 over an activation x [B, C, T]:
+// _pallas_forward). For M blocks i = 0..M-1 (M <= 8 per launch) over an
+// activation x [B, C, T], C a multiple of 16 up to 768, depthwise taps
+// K = 3 or 5:
 //
 //   u = ELU(x * ps_i)
 //   u = pw1_i^T u                 (1x1 conv, C x C)
@@ -402,7 +404,7 @@ resblock_chain_kernel(const T* __restrict__ x, const float4* __restrict__ pw1,
   float* xs = smem;
   float* us = smem + C * ld;
 
-  // Tiles start at multiples of 4 and halos are multiples of 8, so when T
+  // Tiles start at multiples of 4 and halos are multiples of 4, so when T
   // is a multiple of 4 (and the pointers and the slab stride are aligned)
   // every group of 4 rows is one aligned access, wholly before the start of
   // time or wholly inside the tile: four times the bytes in flight per
@@ -466,10 +468,15 @@ using Kernel = void (*)(const T*, const float4*, const float*, const float*,
                         const float4*, const float*, const float*, T*, int, int, int,
                         int, ChainScalars);
 
+// Every tiling is compiled for each depthwise width K the wrapper takes
+// (KERNEL_SIZES in ops/resblock_chain.py).
 template <typename T>
-Kernel<T> select_kernel(int nt, int mt) {
-#define X(NT_, MT_, MINB_) \
-  if (nt == NT_ && mt == MT_) return resblock_chain_kernel<T, NT_, MT_, MINB_, 5>;
+Kernel<T> select_kernel(int nt, int mt, int k) {
+#define X(NT_, MT_, MINB_)                                                 \
+  if (nt == NT_ && mt == MT_ && k == 3)                                    \
+    return resblock_chain_kernel<T, NT_, MT_, MINB_, 3>;                   \
+  if (nt == NT_ && mt == MT_ && k == 5)                                    \
+    return resblock_chain_kernel<T, NT_, MT_, MINB_, 5>;
   WV_TILINGS(X)
 #undef X
   return nullptr;
@@ -482,7 +489,7 @@ size_t slab_smem(int C, int rows) {
 }
 
 bool shape_ok(int C, int M, int K, int nt) {
-  if (K != 5 || M < 1 || M > kMaxM || C < 16 || C % 16 != 0) return false;
+  if ((K != 3 && K != 5) || M < 1 || M > kMaxM || C < 16 || C % 16 != 0) return false;
   if ((C + 8 * nt - 1) / (8 * nt) > kWarps) return false;
   // the depthwise pass holds at most kMaxItems items per thread
   const int nseg_max = kMaxItems * kThreads / C;
@@ -492,11 +499,11 @@ bool shape_ok(int C, int M, int K, int nt) {
 template <typename T>
 cudaError_t launch(const void* x, const void* pw1, const void* dw1, const void* b1,
                    const void* pw2, const void* dw2, const void* b2, void* out, int B,
-                   int C, int T_len, int M, int t_tile, int nt, int mt,
+                   int C, int T_len, int M, int K, int t_tile, int nt, int mt,
                    const ChainScalars& sc, cudaStream_t stream) {
-  Kernel<T> kern = select_kernel<T>(nt, mt);
+  Kernel<T> kern = select_kernel<T>(nt, mt, K);
   if (kern == nullptr) return cudaErrorInvalidValue;
-  const int H = M * 2 * 4;  // K = 5
+  const int H = M * 2 * (K - 1);
   const size_t smem = slab_smem(C, H + (t_tile < T_len ? t_tile : T_len));
   if (smem == 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -513,7 +520,7 @@ cudaError_t launch(const void* x, const void* pw1, const void* dw1, const void* 
 
 template <typename T>
 cudaError_t info(int C, int rows, int nt, int mt, int* regs, int* ctas_per_sm) {
-  Kernel<T> kern = select_kernel<T>(nt, mt);
+  Kernel<T> kern = select_kernel<T>(nt, mt, 5);
   const size_t smem = slab_smem(C, rows);
   if (kern == nullptr || smem == 0) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -545,14 +552,14 @@ int wv_resblock_chain(const void* x, const void* pw1, const void* dw1, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(x, pw1, dw1, b1, pw2, dw2, b2, out, B, C, T_len, M,
-                                      t_tile, nt, mt, sc, s)
-              : launch<float>(x, pw1, dw1, b1, pw2, dw2, b2, out, B, C, T_len, M, t_tile,
-                              nt, mt, sc, s);
+                                      K, t_tile, nt, mt, sc, s)
+              : launch<float>(x, pw1, dw1, b1, pw2, dw2, b2, out, B, C, T_len, M, K,
+                              t_tile, nt, mt, sc, s);
   return (int)err;
 }
 
-// Registers per thread of the instantiation (nt, mt, is_bf16) and the CTAs
-// of it one SM holds when the slabs hold `rows` rows of C channels.
+// Registers per thread of the instantiation (nt, mt, is_bf16) at K = 5 and
+// the CTAs of it one SM holds when the slabs hold `rows` rows of C channels.
 int wv_resblock_chain_info(int C, int rows, int nt, int mt, int is_bf16,
                            int* regs, int* ctas_per_sm) {
   if (!shape_ok(C, 1, 5, nt) || rows < 1) return (int)cudaErrorInvalidValue;

@@ -27,6 +27,7 @@ from waveverify_torch.modules.conv import (
 )
 from waveverify_torch.ops.resblock_chain import (
     KERNEL_SIZES,
+    MAX_CHANNELS,
     fused_resblock_chain,
     stack_chain_weights,
 )
@@ -202,10 +203,13 @@ def _chain_weights(blocks: Sequence[SEANetResnetBlock],
 def _apply_resblock_chain(blocks: Sequence[SEANetResnetBlock],
                           x: torch.Tensor) -> torch.Tensor:
     """Apply adjacent residual blocks: as one fused chain when every block
-    has the kernel's shape, else block by block. Limits of the kernel
-    itself (width, dtype) raise in its wrapper, they do not pick a path."""
+    has the kernel's shape and the chain is at most ``MAX_CHANNELS`` wide,
+    else block by block in plain PyTorch (the JAX package's gate,
+    ``can_fuse``, sends chains over 768 channels to XLA the same way). Other
+    limits of the kernel (dtype) raise in its wrapper, they do not pick a
+    path."""
     b0 = blocks[0] if blocks else None
-    if b0 is not None and all(
+    if b0 is not None and x.shape[1] <= MAX_CHANNELS and all(
             m.fusable() and m.kernel_size == b0.kernel_size
             and m.res_scale == b0.res_scale and m.alpha == b0.alpha
             for m in blocks):

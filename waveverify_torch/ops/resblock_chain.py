@@ -32,6 +32,14 @@ skips ``a_hi b_lo``. The tensor core adds into its sums toward zero, so for
 C > 128 the kernel starts each k-step's products from zero and carries the
 sums in f32 adds outside it, which keeps its error at the f32 product's.
 
+What the kernel takes, and what the wrapper does around it: widths C up to
+``MAX_CHANNELS`` (wider chains run block by block in plain PyTorch, as the
+JAX package runs them in XLA: ``modules/seanet.py`` routes them there);
+depthwise widths k in ``KERNEL_SIZES``; any number of blocks, in launches
+of at most ``_MAX_BLOCKS``; any C, zero-padded to a multiple of 16. Zero
+weights, zero bias and ELU(0) = 0 keep the padded channels at 0 through
+both branches and the identity skip, so the padding changes no output.
+
 What bounds the kernel: each chunk of R rows re-reads the C x C matrix from
 L2, R / 2 FLOP per L2 byte; R is capped by the registers that hold the
 sums and, at C = 768, by the two slabs in shared memory. The kernel takes
@@ -55,8 +63,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 MAX_CHANNELS = 768
-KERNEL_SIZES = (5,)
-_MAX_BLOCKS = 8
+KERNEL_SIZES = (3, 5)
+_MAX_BLOCKS = 8  # blocks in one launch (kMaxM in the source)
 
 # Shared memory per CTA on sm_90 (opt-in maximum), and the budget that
 # leaves room for two CTAs on one SM (228 KB per SM, 1 KB reserved per CTA).
@@ -216,22 +224,28 @@ def _launch_tile(c: int, m: int, k: int) -> int:
 
 
 def chain_plan(c: int, m: int, k: int) -> List[Tuple[int, int]]:
-    """Launches for an m-block chain at width c: ``[(blocks, t_tile), ...]``.
+    """Launches for an m-block chain at width c (a multiple of 16):
+    ``[(blocks, t_tile), ...]``.
 
     One launch for the chain reads and writes x once, but its halo grows
     with m and the recompute with it; one launch per block has a halo of
     2(k-1) rows but moves x m times. Per row, the products cost 4 c^2 f32
     FLOP per block and a launch moves 8 c bytes of f32, weighed at the
-    card's f32 FLOP-per-byte balance; the cheaper plan wins."""
+    card's f32 FLOP-per-byte balance; the cheaper plan wins. A chain of
+    more than ``_MAX_BLOCKS`` blocks is cut into the fewest launches of
+    near-equal length; the blocks are sequential, so the result is the
+    same."""
     def recompute(mm: int) -> float:
         tt = _launch_tile(c, mm, k)
         return (tt + mm * 2 * (k - 1)) / tt if tt > 0 else float("inf")
 
     io = _FLOP_PER_BYTE * 8 * c
-    chain = m * 4 * c * c * recompute(m) + io
+    n = -(-m // _MAX_BLOCKS)
+    groups = [m // n + (i < m % n) for i in range(n)]
+    chain = sum(g * 4 * c * c * recompute(g) + io for g in groups)
     per_block = m * (4 * c * c * recompute(1) + io)
     if chain <= per_block:
-        return [(m, _launch_tile(c, m, k))]
+        return [(g, _launch_tile(c, g, k)) for g in groups]
     return [(1, _launch_tile(c, 1, k))] * m
 
 
@@ -367,8 +381,8 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
 
 def kernel_info(c: int, rows: int, bf16: bool = False) -> Tuple[int, int]:
     """``(registers per thread, CTAs resident on one SM)`` of the kernel a
-    launch at width c takes when its slabs hold ``rows`` rows. Needs the
-    card."""
+    launch at width c (k = 5) takes when its slabs hold ``rows`` rows. Needs
+    the card."""
     import ctypes
 
     lib = _library()
@@ -383,6 +397,9 @@ def kernel_info(c: int, rows: int, bf16: bool = False) -> Tuple[int, int]:
 
 
 def _check(x: torch.Tensor, ws: Sequence[torch.Tensor], m: int) -> None:
+    """Raise on what the kernel does not take: the wrapper calls it after
+    padding the channels, so a width that is no multiple of 16 raises only
+    in a direct call."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, C, T], got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -399,9 +416,9 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor], m: int) -> None:
             raise ValueError("weights must be contiguous")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if c > MAX_CHANNELS or k not in KERNEL_SIZES or m > _MAX_BLOCKS:
-        raise ValueError(f"kernel takes C <= {MAX_CHANNELS}, k in {KERNEL_SIZES} "
-                         f"and M <= {_MAX_BLOCKS}; got C={c}, k={k}, M={m}")
+    if c > MAX_CHANNELS or k not in KERNEL_SIZES:
+        raise ValueError(f"kernel takes C <= {MAX_CHANNELS} and k in "
+                         f"{KERNEL_SIZES}; got C={c}, k={k}, M={m}")
     if c % 16:
         raise ValueError(f"kernel takes C a multiple of 16 (its products run as "
                          f"pairs of 8-column mma tiles); got C={c}")
@@ -413,8 +430,9 @@ def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
     """One chain of M residual blocks over ``x [B, C, T]``.
 
     CPU tensors take :func:`resblock_chain_ref`. CUDA tensors take the
-    kernel, in the launches :func:`chain_plan` picks; ``launches`` counts
-    kernel launches (one per entry of the plan)."""
+    kernel, on channels padded to a multiple of 16 (:func:`pad_channels`),
+    in the launches :func:`chain_plan` picks; ``launches`` counts kernel
+    launches (one per entry of the plan)."""
     ws = (pw1s, dw1s, b1s, pw2s, dw2s, b2s)
     m = len(prescales)
     if x.device.type == "cpu":
@@ -422,16 +440,50 @@ def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
                                   res_scale=res_scale, alpha=alpha)
     if x.device.type != "cuda":
         raise RuntimeError(f"resblock_chain: unsupported device {x.device}")
+    c = x.shape[1]
+    x, ws = pad_channels(x, ws)
     _check(x, ws, m)
-    k = dw1s.shape[1]
+    k = ws[1].shape[1]
     bf16 = x.dtype == torch.bfloat16
-    ws = (_packed(pw1s, bf16), dw1s, b1s, _packed(pw2s, bf16), dw2s, b2s)
+    ws = (_packed(ws[0], bf16), ws[1], ws[2], _packed(ws[3], bf16), ws[4], ws[5])
     i = 0
     for blocks, t_tile in chain_plan(x.shape[1], m, k):
         sl = slice(i, i + blocks)  # a slice of whole blocks stays contiguous
         x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile)
         i += blocks
-    return x
+    return x if x.shape[1] == c else x[:, :c].contiguous()
+
+
+def padded_width(c: int) -> int:
+    """The width the kernel runs a chain of width c at."""
+    return -(-c // 16) * 16
+
+
+def pad_channels(x: torch.Tensor, ws: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``x [B, C, T]`` and the six weights with their channels zero-padded
+    to :func:`padded_width`; the same tensors where C is a multiple of 16.
+    The padded channels stay exactly 0 through every block, so the first C
+    channels of the result are the chain's."""
+    c = x.shape[1]
+    p = padded_width(c) - c
+    if p == 0:
+        return x, tuple(ws)
+    pw1, dw1, b1, pw2, dw2, b2 = ws
+    return (torch.nn.functional.pad(x, (0, 0, 0, p)),
+            (_padded(pw1, (0, p, 0, p)), _padded(dw1, (0, p)), _padded(b1, (0, p)),
+             _padded(pw2, (0, p, 0, p)), _padded(dw2, (0, p)), _padded(b2, (0, p))))
+
+
+def _padded(w: torch.Tensor, pad: Tuple[int, ...]) -> torch.Tensor:
+    """``w`` zero-padded by ``pad``, kept on ``w`` until it is written in
+    place, so that the padded ``pw`` keeps its :func:`_packed` copy."""
+    key = (w.data_ptr(), w._version, pad)
+    hit = getattr(w, "_padded_for_kernel", None)
+    if hit is None or hit[0] != key:
+        hit = (key, torch.nn.functional.pad(w.detach(), pad))
+        w._padded_for_kernel = hit
+    return hit[1]
 
 
 resblock_chain.launches = 0
@@ -439,7 +491,7 @@ resblock_chain.launches = 0
 
 def launches_per_chain(c: int, m: int, k: int = 5) -> int:
     """Kernel launches one chain of m blocks at width c costs."""
-    return len(chain_plan(c, m, k))
+    return len(chain_plan(padded_width(c), m, k))
 
 
 class ResblockChainFn(torch.autograd.Function):

@@ -1,20 +1,33 @@
 """Training CLI: ``python -m waveverify_torch.train [--config conf/base.yml]``.
 
-The flags of the JAX package's trainer that its base path uses, with
-``--device`` (default ``cuda``) in place of ``--platform`` and
-``--pallas``. Without ``--config`` the run takes ``TrainConfig()``, which
-equals ``conf/base.yml``; reading a YAML file or a ``--set`` value needs
-PyYAML. The JAX trainer's other flags are accepted and raise
-``ValueError`` naming themselves: they are not ported yet.
+The JAX package's trainer flags, with ``--device`` (default ``cuda``) in
+place of ``--platform`` and ``--pallas`` (the port has no switch that
+turns its kernel off on the card). Without ``--config`` the run takes
+``TrainConfig()``, which equals ``conf/base.yml``; reading a YAML file or
+a list or mapping given to ``--set`` needs PyYAML. Every ``--set
+warmup.*`` knob is ported (the training controllers), and so are
+``--init-weights``,
+``--init-meta`` and ``--reinit-msg-path``: the r5 recipe
+(``scripts/train_demo_r5.sh``) continues from its committed snapshot with
+
+    python -m waveverify_torch.train --ckpt-dir runs/r5 \
+        --init-weights weights/snapshots/demo_r5_latest.npz \
+        --init-meta weights/snapshots/demo_r5_latest_meta.json \
+        --batch-size 16 --no-remat --set train_duration=0.9 ... (the
+        script's --set flags)
+
+The flags still not ported, ``--num-devices``, ``--steps-per-dispatch``,
+``--split-disc``, ``--tensorboard``, ``--wandb`` and ``--profile-steps``,
+are accepted and raise ``ValueError`` naming themselves.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
-from waveverify_torch.config import load_config
+from waveverify_torch.config import TrainConfig, load_config
 from waveverify_torch.train.loop import DEFAULT_CKPT_DIR, TrainerConfig, train
 
 # flag -> argparse default; any other value is refused
@@ -22,37 +35,57 @@ _UNSUPPORTED = {
     "num_devices": None,
     "steps_per_dispatch": 1,
     "split_disc": False,
-    "init_meta": None,
-    "reinit_msg_path": False,
     "tensorboard": None,
     "wandb": None,
     "profile_steps": None,
 }
 
 
+_WORDS = {"true": True, "yes": True, "on": True, "false": False, "no": False,
+          "off": False, "null": None, "~": None, "": None}
+
+
+def _read_value(v: str):
+    """One ``--set`` value, read the same on every machine: a list or
+    mapping (``[...]`` / ``{...}``) as YAML, which needs PyYAML; any other
+    value is a scalar read here: quotes make a string, YAML's booleans and
+    null (any case) their value, then an int, a float, or else the string
+    (so ``2e-4`` is a float, which YAML 1.1 would read as a string)."""
+    v = v.strip()
+    if v.startswith(("[", "{")):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"--set value {v!r} is a list or mapping, which "
+                              "needs PyYAML") from e
+        return yaml.safe_load(v)
+    if len(v) >= 2 and v[0] == v[-1] and v[0] in "'\"":
+        return v[1:-1]
+    if v.lower() in _WORDS:
+        return _WORDS[v.lower()]
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return v
+
+
 def _parse_set(values: Sequence[str], ap: argparse.ArgumentParser) -> dict:
+    """``--set KEY=VALUE`` overrides, each value read by :func:`_read_value`."""
     overrides = {}
     for kv in values:
         if "=" not in kv:
             ap.error(f"--set expects KEY=VALUE, got {kv!r}")
-        try:
-            import yaml
-        except ImportError as exc:
-            raise ImportError("--set needs PyYAML, which is not installed") from exc
         k, v = kv.split("=", 1)
-        val = yaml.safe_load(v)
-        if isinstance(val, str):  # YAML 1.1 reads '2e-4' as a string
-            for cast in (int, float):
-                try:
-                    val = cast(val)
-                    break
-                except ValueError:
-                    pass
-        overrides[k.strip()] = val
+        overrides[k.strip()] = _read_value(v)
     return overrides
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def parse(argv: Optional[Sequence[str]] = None
+          ) -> Tuple[TrainConfig, TrainerConfig, Optional[int], bool, bool]:
+    """The run the flags describe: ``(config, trainer options, max steps,
+    resume, verbose)``; raises ``ValueError`` on a flag not ported."""
     ap = argparse.ArgumentParser(description="Train waveverify with PyTorch")
     ap.add_argument("--config", default=None,
                     help="YAML of the conf/base.yml schema (default: the "
@@ -89,6 +122,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--init-weights", default=None, metavar="NPZ",
                     help="warm-start the three networks from a weights .npz "
                     "when no checkpoint is resumed")
+    ap.add_argument("--init-meta", default=None, metavar="JSON",
+                    help="with --init-weights: a checkpoint meta.json whose "
+                    "step count and scheduler, ramp and nbits-curriculum "
+                    "states the run continues from")
+    ap.add_argument("--reinit-msg-path", action="store_true",
+                    help="after the warm start, replace the msg_* / film_* "
+                    "parameters with fresh ones (skipped when --resume "
+                    "found a checkpoint)")
     ap.add_argument("--no-samples", action="store_true",
                     help="no WAV sample dumps")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -96,8 +137,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--num-devices", type=int, default=None)
     ap.add_argument("--steps-per-dispatch", type=int, default=1)
     ap.add_argument("--split-disc", action="store_true")
-    ap.add_argument("--init-meta", default=None)
-    ap.add_argument("--reinit-msg-path", action="store_true")
     ap.add_argument("--tensorboard", default=None)
     ap.add_argument("--wandb", default=None)
     ap.add_argument("--profile-steps", default=None)
@@ -107,10 +146,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if getattr(args, name) != default:
             raise ValueError(f"--{name.replace('_', '-')} is not supported by "
                              "the PyTorch trainer yet")
-
-    logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
     overrides = _parse_set(args.set, ap)
     for key in ("batch_size", "val_batch_size", "train_duration", "val_duration"):
@@ -125,13 +160,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         ckpt_dir=args.ckpt_dir,
         log_file=args.log_file,
         init_weights=args.init_weights,
+        init_meta=args.init_meta,
+        reinit_msg_path=args.reinit_msg_path,
         log_every=args.log_every,
         dump_samples=not args.no_samples,
         effects_config=args.effects_config,
         conv_precision=args.conv_precision,
         device=args.device,
     )
-    train(cfg, trainer, max_steps=args.max_steps, resume=args.resume)
+    return cfg, trainer, args.max_steps, args.resume, args.verbose
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    cfg, trainer, max_steps, resume, verbose = parse(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    train(cfg, trainer, max_steps=max_steps, resume=resume)
 
 
 if __name__ == "__main__":

@@ -28,11 +28,17 @@ EPS = 1e-8
 WM_NETS = ("generator", "detector", "locator")
 
 
+def in_msg_path(name: str) -> bool:
+    """Whether a parameter (dotted module path) belongs to the message path:
+    a part of its path starts with ``msg_`` or ``film_`` (the JAX package's
+    predicate for the decay mask, the message-path freeze and the
+    ``--reinit-msg-path`` graft)."""
+    return any(part.startswith(("msg_", "film_")) for part in name.split("."))
+
+
 def _decays(name: str, cfg: OptimConfig) -> bool:
     """Whether a parameter (dotted module path) takes weight decay."""
-    if not cfg.decay_exclude_msg_path:
-        return True
-    return not any(part.startswith(("msg_", "film_")) for part in name.split("."))
+    return not (cfg.decay_exclude_msg_path and in_msg_path(name))
 
 
 def wm_param_groups(models: WatermarkModels, cfg: OptimConfig

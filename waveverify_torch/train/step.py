@@ -12,13 +12,21 @@
    stepped unclipped;
 5. per-sample BER and MIoU and per-bit accuracy, for the scheduler.
 
+The training controllers (``train/loop.py``) steer a step through five
+optional inputs, with the JAX step's semantics: ``percep_scale`` weighs
+the perceptual and adversarial terms (by default the step-indexed ramp of
+``LossConfig.warmup_steps``, or 1); ``train_disc`` False skips step 2 and
+the adversarial terms of step 3; ``gen_update_scale`` and
+``msg_update_scale`` multiply the generator's clipped gradients (all of
+them, or the message path's); ``bit_mask`` weighs the bits of every
+decoding loss.
+
 The pieces are functions of their own so a caller can time them apart.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -36,23 +44,22 @@ from waveverify_torch.losses import (
     multi_scale_stft_loss,
 )
 from waveverify_torch.metrics import ber, miou, sisnr
-from waveverify_torch.train.state import TrainState
+from waveverify_torch.train.state import TrainState, in_msg_path
 from waveverify_torch.train.watermarking import Draws, forward_train, forward_valid
 
 MAX_GRADIENT_NORM = 10.0
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` naming the first option the port's training does
-    not implement: the ``warmup_*`` knobs drive the JAX trainer's host
-    controllers (ramp, nbits curriculum, alternation, message freeze)."""
-    default = LossConfig()
-    for f in dataclasses.fields(LossConfig):
-        if f.name.startswith("warmup_") and (
-                getattr(cfg.loss, f.name) != getattr(default, f.name)):
-            raise ValueError(f"LossConfig.{f.name} is not supported by the "
-                             "PyTorch trainer yet (the warmup controllers are "
-                             "not ported)")
+def step_ramp(step: int, loss_cfg: LossConfig) -> float:
+    """The step-indexed perceptual ramp, ``init_scale ** (1 - clip(step /
+    warmup_steps, 0, 1))`` in f32 as the JAX step traces it; 1 without
+    ``warmup_steps``."""
+    if loss_cfg.warmup_steps <= 0:
+        return 1.0
+    frac = torch.clamp(torch.tensor(step, dtype=torch.float32)
+                       / loss_cfg.warmup_steps, 0.0, 1.0)
+    return float(torch.pow(torch.tensor(loss_cfg.warmup_init_scale,
+                                        dtype=torch.float32), 1.0 - frac))
 
 
 @contextlib.contextmanager
@@ -102,9 +109,15 @@ def discriminator_update(state: TrainState, cfg: TrainConfig,
 
 def generator_losses(state: TrainState, cfg: TrainConfig,
                      outs: Dict[str, torch.Tensor], audio: torch.Tensor,
-                     msg: torch.Tensor) -> Dict[str, torch.Tensor]:
+                     msg: torch.Tensor, percep_scale: float = 1.0,
+                     adversarial: bool = True,
+                     bit_mask: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Step 3's losses; ``"loss"`` is the weighted total. The
-    discriminator's parameters take no gradient from them."""
+    discriminator's parameters take no gradient from them. ``percep_scale``
+    weighs the stft, mel, waveform and adversarial terms; without
+    ``adversarial`` those two terms are 0 and the discriminator does not
+    run; ``bit_mask [nbits]`` weighs the bits of every decoding term."""
     lc = cfg.loss
     sr = cfg.generator.sample_rate
     w = outs["watermarked"]
@@ -116,32 +129,40 @@ def generator_losses(state: TrainState, cfg: TrainConfig,
         window_lengths=lc.mel_window_lengths, clamp_eps=lc.mel_clamp_eps,
         mag_weight=lc.mel_mag_weight, pow=lc.mel_pow)
     logs["waveform/loss"] = l1_loss(w, audio)
-    with frozen(state.models.discriminator):
-        logs["adv/gen_loss"], logs["adv/feat_loss"] = generator_loss(
-            state.models.apply_discriminator, w, audio)
-    logs["dec/loss"] = decoding_loss(outs["detector_logits"], outs["mask"], msg)
+    if adversarial:
+        with frozen(state.models.discriminator):
+            logs["adv/gen_loss"], logs["adv/feat_loss"] = generator_loss(
+                state.models.apply_discriminator, w, audio)
+    else:
+        logs["adv/gen_loss"] = logs["adv/feat_loss"] = w.new_zeros(())
+    bm = bit_mask  # every decoding term below takes it
+    logs["dec/loss"] = decoding_loss(outs["detector_logits"], outs["mask"], msg,
+                                     bit_mask=bm)
     logs["loc/loss"] = localization_loss(outs["locator_logits"], outs["mask"])
-    total = (lc.lambda_stft * logs["stft/loss"]
-             + lc.lambda_mel * logs["mel/loss"]
-             + lc.lambda_waveform * logs["waveform/loss"]
-             + lc.lambda_adv_gen * logs["adv/gen_loss"]
+    total = (percep_scale * (lc.lambda_stft * logs["stft/loss"]
+                             + lc.lambda_mel * logs["mel/loss"]
+                             + lc.lambda_waveform * logs["waveform/loss"]
+                             + lc.lambda_adv_gen * logs["adv/gen_loss"])
              + lc.lambda_dec * logs["dec/loss"]
              + lc.lambda_loc * logs["loc/loss"])
     ones = torch.ones_like(outs["mask"])
     if lc.lambda_dec_clean > 0:
         logs["dec/loss_clean"] = decoding_loss(outs["detector_logits_clean"],
-                                               ones, msg)
+                                               ones, msg, bit_mask=bm)
         total = total + lc.lambda_dec_clean * logs["dec/loss_clean"]
     if lc.lambda_dec_bits > 0:
-        bits = decoding_loss_bits(outs["detector_logits"], outs["mask"], msg)
+        bits = decoding_loss_bits(outs["detector_logits"], outs["mask"], msg,
+                                  bit_mask=bm)
         if lc.lambda_dec_clean > 0:
             bits = bits + decoding_loss_bits(outs["detector_logits_clean"],
-                                             None, msg)
+                                             None, msg, bit_mask=bm)
         logs["dec/loss_bits"] = bits
         total = total + lc.lambda_dec_bits * bits
     if lc.lambda_dec_lowband > 0:
-        lb = (decoding_loss(outs["detector_logits_lowband"], ones, msg)
-              + decoding_loss_bits(outs["detector_logits_lowband"], None, msg))
+        lb = (decoding_loss(outs["detector_logits_lowband"], ones, msg,
+                            bit_mask=bm)
+              + decoding_loss_bits(outs["detector_logits_lowband"], None, msg,
+                                   bit_mask=bm))
         logs["dec/loss_lowband"] = lb
         total = total + lc.lambda_dec_lowband * lb
     logs["loss"] = total
@@ -155,10 +176,16 @@ def grad_norm(module: torch.nn.Module) -> torch.Tensor:
          if p.grad is not None]))
 
 
-def generator_update(state: TrainState, total: torch.Tensor
-                     ) -> Dict[str, torch.Tensor]:
+def generator_update(state: TrainState, total: torch.Tensor,
+                     gen_update_scale: float = 1.0,
+                     msg_update_scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """Step 3's backward and step 4: returns the three networks' gradient
-    norms, the generator's before its clip."""
+    norms, the generator's before its clip. After the clip the generator's
+    gradients are multiplied by ``gen_update_scale`` and its message path's
+    (:func:`~waveverify_torch.train.state.in_msg_path`) by
+    ``msg_update_scale``; AdamW then steps on them as optax does on the
+    scaled tree: at 0 the moments decay and decoupled weight decay still
+    applies."""
     models = state.models
     state.wm_opt.zero_grad(set_to_none=False)
     total.backward()
@@ -166,6 +193,12 @@ def generator_update(state: TrainState, total: torch.Tensor
              for net in ("detector", "locator")}
     norms["grad_norm/generator"] = torch.nn.utils.clip_grad_norm_(
         models.generator.parameters(), MAX_GRADIENT_NORM)
+    with torch.no_grad():
+        for name, p in models.generator.named_parameters():
+            scale = gen_update_scale * (msg_update_scale if in_msg_path(name)
+                                        else 1.0)
+            if scale != 1.0:
+                p.grad.mul_(scale)
     state.wm_opt.step()
     state.wm_sched.step()
     return norms
@@ -195,19 +228,32 @@ def feedback(outs: Dict[str, torch.Tensor], msg: torch.Tensor
 
 def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
                audio: torch.Tensor, msg: torch.Tensor, effect_idx,
-               draws: Draws) -> Dict[str, torch.Tensor]:
+               draws: Draws, percep_scale: Optional[float] = None,
+               train_disc: bool = True, gen_update_scale: float = 1.0,
+               msg_update_scale: float = 1.0,
+               bit_mask: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
     """One step; updates ``state`` in place and returns its metrics as
     tensors on the device (the host reads them when it needs them).
 
     audio ``[B, T]``, msg ``[B, nbits]`` on the state's device;
     effect_idx ``[B]`` host indices into ``bank``; ``draws`` on the
-    device."""
-    check_supported(cfg)
+    device; the controllers' inputs as the module docstring says
+    (``bit_mask`` on the device). Without ``train_disc`` the discriminator,
+    its optimizer and its schedule stay as they are, and
+    ``adv/disc_loss`` and ``grad_norm/discriminator`` report 0."""
+    if percep_scale is None:
+        percep_scale = step_ramp(state.step, cfg.loss)
     outs = forward(state, cfg, bank, audio, msg, effect_idx, draws)
-    d_loss, d_norm = discriminator_update(state, cfg, outs["residual"], audio,
-                                          draws.gp_alpha)
-    logs = generator_losses(state, cfg, outs, audio, msg)
-    norms = generator_update(state, logs["loss"])
+    if train_disc:
+        d_loss, d_norm = discriminator_update(state, cfg, outs["residual"],
+                                              audio, draws.gp_alpha)
+    else:
+        d_loss = d_norm = audio.new_zeros(())
+    logs = generator_losses(state, cfg, outs, audio, msg, percep_scale,
+                            adversarial=train_disc, bit_mask=bit_mask)
+    norms = generator_update(state, logs["loss"], gen_update_scale,
+                             msg_update_scale)
     state.step += 1
     return {**{k: v.detach() for k, v in logs.items()},
             "adv/disc_loss": d_loss,
