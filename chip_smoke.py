@@ -56,7 +56,20 @@ Phases, each fatal on failure:
      gate closed and 4 bits active, and again with the generator on, its
      message path frozen and 4 bits active; the recipe's ms per step
      (with and without the discriminator), peak memory and launches per
-     step.
+     step;
+  8. the rest of the user surface (each fatal on failure): (i) random init,
+     WaveVerify(None, config_path=conf/base.yml, seed=0), parameters equal
+     on the card and the CPU, embed+detect at batch 64 and locate_array on
+     the card, card vs CPU at batch 2; (ii) those weights as a reference
+     .pth (atomic and un-stripped forms, tests/reference_checkpoint.py)
+     served on the card, logits at batch 64 against (i)'s; (iii) phase 6's
+     checkpoint served as its tag directory and its root, bit for bit its
+     weights.npz, and an orbax directory refused; (iv) run_sweep with every
+     catalog effect as a row on r5 at the CLI's defaults, and card vs CPU
+     at batch 2 x 1 s with the same draws; (v) the 20-branch bank alone,
+     card vs CPU, forward and backward; one full-width step at batch 2 on
+     two new random branches against the CPU; the training CLI for 10
+     steps with an effects YAML of all 20 effects.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -67,10 +80,13 @@ Run from the repository root: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import atexit
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -586,10 +602,11 @@ TRAIN_GRAD_TOL = {"generator": 5e-2, "detector": 2e-3, "locator": 3e-4,
 GATED_NORM_TOL = 1e-2
 
 
-def train_batch(cfg, bank, b, step):
+def train_batch(cfg, bank, b, step, idx=None, audio=None):
     """Host inputs of training step ``step`` at batch b: synthetic 1 s
-    clips, messages, the scheduler's bank indices and the step's draws (all
-    from seeds, on the CPU)."""
+    clips (``audio`` when given), messages, the scheduler's bank indices
+    (``idx`` when given) and the step's draws (all from seeds, on the
+    CPU)."""
     import numpy as np
 
     from waveverify_torch.effects.scheduler import EffectScheduler
@@ -597,12 +614,14 @@ def train_batch(cfg, bank, b, step):
     from waveverify_torch.train.loop import step_generator
     from waveverify_torch.train.watermarking import draw
 
-    audio = SyntheticAudioDataset(cfg.train_duration, CLIP, step).batch(b)
+    if audio is None:
+        audio = SyntheticAudioDataset(cfg.train_duration, CLIP, step).batch(b)
     msg = generate_random_message(np.random.RandomState(step), b)
-    idx, _ = EffectScheduler(rng=np.random.RandomState(step)).select_bank_indices(
-        b, bank.specs)
+    if idx is None:
+        idx, _ = EffectScheduler(rng=np.random.RandomState(step)).select_bank_indices(
+            b, bank.specs)
     d = draw(step_generator(cfg.seed, step), b, audio.shape[1],
-             len(bank.noise_branches), CLIP, cfg.window_duration,
+             bank.random_specs, CLIP, cfg.window_duration,
              cfg.generator.hop_length if cfg.sub_hop_jitter else 0)
     return audio, msg, idx, d
 
@@ -669,7 +688,8 @@ def check_chain_grads(torch, rc, report):
         raise AssertionError(f"chain gradients under checkpoint: {bad}")
 
 
-def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
+def check_train_step(torch, rc, report, gates=None, label="train_step_check",
+                     bank=None, idx=None, audio=None, spread=False):
     """Training a: one step at full width (TrainConfig(), batch 2 x 16000)
     on the card against the same step of the port on the CPU, from the
     same seed-0 parameters and draws, f32 with TF32 off: the losses, the
@@ -678,7 +698,12 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
     gates leave without a gradient (the discriminator without
     ``train_disc``) must have none on either side and keep its parameters.
     Under gates that zero the perceptual terms the generator's pre-clip
-    norm is held to GATED_NORM_TOL. Returns the launches of the card's
+    norm is held to GATED_NORM_TOL. ``bank``, ``idx`` and ``audio``
+    replace the shipped bank, the scheduler's choice of branches and the
+    synthetic clips. With ``spread`` the card runs the step twice more at
+    audio * (1 +- 1e-7), and each leaf is held to its network's
+    TRAIN_GRAD_TOL or four times how far the card's own gradient of that
+    leaf moved, whichever is larger. Returns the launches of the card's
     step."""
     import dataclasses
 
@@ -687,8 +712,8 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
     from waveverify_torch.train.state import create_train_state
 
     cfg = dataclasses.replace(TrainConfig(), batch_size=2)
-    bank = EffectBank.default_train_bank()
-    batch = train_batch(cfg, bank, 2, 0)
+    bank = bank or EffectBank.default_train_bank()
+    batch = train_batch(cfg, bank, 2, 0, idx, audio)
     states, metrics = {}, {}
     for dev in ("cpu", "cuda"):
         states[dev] = create_train_state(cfg, torch.Generator().manual_seed(0),
@@ -703,11 +728,26 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
     if launches != per_step:
         raise AssertionError(f"train step launched {launches} chain kernels, "
                              f"expected {per_step} (remat: 2 x the forward's)")
+    # the card's own spread per leaf, under audio * (1 +- 1e-7)
+    own = {}
+    for e in ((1e-7, -1e-7) if spread else ()):
+        st = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                torch.device("cuda"))
+        audio_e, *rest = batch
+        run_train_step(torch, st, cfg, bank, (audio_e * (1 + e), *rest), "cuda", gates)
+        for net in TRAIN_NETS:
+            ref = dict(getattr(states["cuda"].models, net).named_parameters())
+            for n, p in getattr(st.models, net).named_parameters():
+                if p.grad is not None and ref[n].grad is not None:
+                    d = float((p.grad - ref[n].grad).norm()
+                              / ref[n].grad.norm().clamp_min(1e-30))
+                    own[(net, n)] = max(own.get((net, n), 0.0), d)
     card = card_line()
     cpu, gpu = metrics["cpu"], {k: v.cpu() for k, v in metrics["cuda"].items()}
-    # each network's worst leaf: the gradient the step left (the generator's
-    # and discriminator's after their clip), card against CPU
-    grad_dev = {}
+    # each network's worst leaf (by its deviation over its limit): the
+    # gradient the step left (the generator's and discriminator's after
+    # their clip), card against CPU
+    grad_dev, leaf_limit = {}, {}
     untrained = set() if (gates or {}).get("train_disc", True) else {"discriminator"}
     for net in TRAIN_NETS:
         ref = dict(getattr(states["cpu"].models, net).named_parameters())
@@ -723,8 +763,10 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
             if g is None or g_ref is None:
                 raise AssertionError(f"train step {net}.{n}: no gradient")
             devs[n] = float((g.cpu() - g_ref).norm() / g_ref.norm().clamp_min(1e-30))
-        worst = max(devs, key=devs.get)
+        limits = {n: max(TRAIN_GRAD_TOL[net], 4 * own.get((net, n), 0.0)) for n in devs}
+        worst = max(devs, key=lambda n: devs[n] / limits[n])
         grad_dev[net] = (worst, devs[worst])
+        leaf_limit[net] = limits[worst]
     rel = {k: abs(float(gpu[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-12)
            for k, v in cpu.items() if v.dim() == 0}
     norm_limit = {}
@@ -749,6 +791,10 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
             if not torch.equal(p.detach().cpu(), q.detach()):
                 raise AssertionError(f"{label} {net}.{n}: moved without train_disc")
     report[label].update({"rel_dev": rel, "grad_dev": grad_dev,
+                          "leaf_limit": leaf_limit,
+                          "own_spread_worst": {net: max((v for (k, _), v in own.items()
+                                                         if k == net), default=0.0)
+                                               for net in TRAIN_NETS},
                           "max_param_dev": worst_param, "launches": launches,
                           "gates": {k: (v.tolist() if hasattr(v, "tolist") else v)
                                     for k, v in (gates or {}).items()}})
@@ -756,7 +802,7 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
           f"off, gates {gates or 'none'}): {launches} chain launches; rel dev " + ", ".join(
               f"{k} {v:.2e}" for k, v in rel.items())
           + "; worst leaf's gradient rel dev " + ", ".join(
-              f"{k} {v[1]:.2e} ({v[0]}, limit {TRAIN_GRAD_TOL[k]:.0e})"
+              f"{k} {v[1]:.2e} ({v[0]}, limit {leaf_limit[k]:.1e})"
               for k, v in grad_dev.items())
           + "; max |param dev| " + ", ".join(
               f"{k} {v:.2e}" for k, v in worst_param.items())
@@ -776,9 +822,9 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
         if not v <= limit:
             raise AssertionError(f"train step {k}: card vs CPU rel dev {v} > {limit}")
     for net, (name, v) in grad_dev.items():
-        if not v <= TRAIN_GRAD_TOL[net]:
+        if not v <= leaf_limit[net]:
             raise AssertionError(f"train step {net}.{name}: gradient card vs CPU "
-                                 f"rel dev {v} > {TRAIN_GRAD_TOL[net]}")
+                                 f"rel dev {v} > {leaf_limit[net]}")
     for net, v in worst_param.items():
         if not v <= param_limit[net]:
             raise AssertionError(f"train step {net}: param dev {v} > "
@@ -786,16 +832,14 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check"):
     return launches
 
 
-def check_train_cli(torch, rc, report):
+def check_train_cli(torch, rc, report, ckpt_dir):
     """Training b: ``python -m waveverify_torch.train``'s entry point at
     TrainConfig() (conf/base.yml: full width, batch 32 x 1 s) for
     CLI_STEPS steps, validating once at the end; the losses stay finite,
     every network's gradient norm is positive at every step and each
     network moves further than weight decay alone would move it, and the
-    saved weights serve embed+detect through WaveVerify on the card.
-    Returns the launches."""
-    import tempfile
-
+    saved weights serve embed+detect through WaveVerify on the card. The
+    checkpoint stays in ``ckpt_dir`` for phase 8. Returns the launches."""
     import numpy as np
 
     from waveverify_torch import WaveVerify
@@ -811,40 +855,40 @@ def check_train_cli(torch, rc, report):
     # the steps, one validation (generator, then detector and locator per
     # effect of the 8-row sweep) and one sample dump (generator)
     expected = CLI_STEPS * per_step + gen + 8 * det_loc + gen
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize()
-        rc.resblock_chain.launches = 0
-        t0 = time.perf_counter()
-        train_main(["--max-steps", str(CLI_STEPS), "--ckpt-dir", tmp,
-                    "--log-every", "1"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = rc.resblock_chain.launches
-        lines = [json.loads(x) for x in
-                 (Path(tmp) / "train_log.jsonl").read_text().splitlines()]
-        steps = [r for r in lines if "loss" in r]
-        vals = [r for r in lines if "val/loss" in r]
-        state = torch.load(Path(tmp) / "latest" / "state.pt", map_location="cpu",
-                           weights_only=True)
-        init = create_train_state(cfg, torch.Generator().manual_seed(cfg.seed),
-                                  torch.device("cpu")).models.state_dict()
-        # how far each network moved beyond what weight decay alone gives
-        # (|p| shrinks by at most steps x lr x wd x |p|): Adam moves a
-        # parameter with a gradient by about lr a step
-        decay = CLI_STEPS * TRAIN_LR * WEIGHT_DECAY * max(
-            1.0, cfg.optim.generator_lr_mult, cfg.optim.detector_lr_mult)
-        moved = {net: max(float(((state["models"][k] - v).abs()
-                                 - decay * v.abs()).max())
-                          for k, v in init.items() if k.startswith(net + "."))
-                 for net in TRAIN_NETS}
-        wv = WaveVerify(Path(tmp) / "latest" / "weights.npz", device="cuda")
-        rng = np.random.RandomState(1)
-        audio = (rng.randn(4, CLIP) * 0.1).astype(np.float32)
-        bits = rng.randint(0, 2, (4, 16)).astype(np.float32)
-        rc.resblock_chain.launches = 0
-        wm = wv.embed_batch(audio, bits)
-        _, conf = wv.detect_batch(wm)
-        served = rc.resblock_chain.launches
+    tmp = str(ckpt_dir)
+    torch.cuda.synchronize()
+    rc.resblock_chain.launches = 0
+    t0 = time.perf_counter()
+    train_main(["--max-steps", str(CLI_STEPS), "--ckpt-dir", tmp,
+                "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rc.resblock_chain.launches
+    lines = [json.loads(x) for x in
+             (Path(tmp) / "train_log.jsonl").read_text().splitlines()]
+    steps = [r for r in lines if "loss" in r]
+    vals = [r for r in lines if "val/loss" in r]
+    state = torch.load(Path(tmp) / "latest" / "state.pt", map_location="cpu",
+                       weights_only=True)
+    init = create_train_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                              torch.device("cpu")).models.state_dict()
+    # how far each network moved beyond what weight decay alone gives
+    # (|p| shrinks by at most steps x lr x wd x |p|): Adam moves a
+    # parameter with a gradient by about lr a step
+    decay = CLI_STEPS * TRAIN_LR * WEIGHT_DECAY * max(
+        1.0, cfg.optim.generator_lr_mult, cfg.optim.detector_lr_mult)
+    moved = {net: max(float(((state["models"][k] - v).abs()
+                             - decay * v.abs()).max())
+                      for k, v in init.items() if k.startswith(net + "."))
+             for net in TRAIN_NETS}
+    wv = WaveVerify(Path(tmp) / "latest" / "weights.npz", device="cuda")
+    rng = np.random.RandomState(1)
+    audio = (rng.randn(4, CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (4, 16)).astype(np.float32)
+    rc.resblock_chain.launches = 0
+    wm = wv.embed_batch(audio, bits)
+    _, conf = wv.detect_batch(wm)
+    served = rc.resblock_chain.launches
     card = card_line()
     report["train_cli"] = {"steps": len(steps), "wall_s": wall, "launches": launches,
                            "expected_launches": expected, "moved": moved,
@@ -977,7 +1021,7 @@ def time_training(torch, rc, report):
         ds.batch(TRAIN_BATCH)
         generate_random_message(rng, TRAIN_BATCH)
         _, sel = sched.select_bank_indices(TRAIN_BATCH, bank.specs)
-        draw(step_generator(0, i), TRAIN_BATCH, CLIP, len(bank.noise_branches))
+        draw(step_generator(0, i), TRAIN_BATCH, CLIP, bank.random_specs)
         _feed_scheduler(sched, {"per_sample_ber": rng.rand(TRAIN_BATCH),
                                 "per_sample_miou": rng.rand(TRAIN_BATCH)}, sel)
     out["host_ms_per_step"] = (time.perf_counter() - t0) / 10 * 1e3
@@ -1361,6 +1405,385 @@ def time_controlled_steps(torch, rc, report):
     return out
 
 
+# -- phase 8: the rest of the user surface ---------------------------------------
+
+BASE_YML = ROOT / "conf" / "base.yml"
+# random init, card against the card machine's CPU at batch 2: residual and
+# logits (absolute)
+RANDOM_INIT_TOL = 1e-4
+# a .pth made from the random-init weights against those weights, logits at
+# batch 64 (absolute)
+PTH_TOL = 1e-5
+# the catalog sweep, card against CPU at batch 2 x 1 s with the same draws:
+# confidence, MIoU, BER (1 of the 32 bits)
+CATALOG_SWEEP_LIMITS = {"confidence": 1e-3, "miou": 1e-3, "ber": 1 / 32,
+                        "ber_full": 1 / 32}
+# the 20-branch bank alone, card against CPU: outputs, and the gradient of
+# sum(out * w) with respect to the audio
+BANK_TOL = 2e-6
+BANK_GRAD_TOL = 1e-5
+CATALOG_CLI_STEPS = 10
+# one sweep row per on-device catalog effect at the JAX defaults (encodec as
+# its proxy; the host codecs are the sweep's codec rows)
+CATALOG_EFFECTS = ["identity", "highpass_filter", "lowpass_filter", "bandpass_filter",
+                   "random_equalization", "speed", "resample", "echo", "time_shift",
+                   "random_noise", "white_noise", "pink_noise", "amplitude_scaling",
+                   "quantization", "sample_suppression", "shush", "median_filter",
+                   "smooth", "codec_proxy", "encodec"]
+
+
+def _exported(wv):
+    from waveverify_torch.weights import export_params
+
+    return {k: v for net in ("generator", "detector", "locator")
+            for k, v in export_params(getattr(wv.models, net), net).items()}
+
+
+def _per_call(rc):
+    emb = sum(rc.launches_per_chain(c, m) for _, c, m in GEN_ENC + GEN_DEC)
+    det = sum(rc.launches_per_chain(c, m) for _, c, m in DET_ENC)
+    loc = sum(rc.launches_per_chain(c, m) for _, c, m in LOC_ENC)
+    return emb, det, loc
+
+
+def _logits(torch, wv, x):
+    """(detector, locator) logits of ``x`` [B, T] numpy, on the CPU."""
+    with torch.no_grad():
+        t = torch.tensor(x, device=wv.device)
+        return (wv.models.apply_detector(t).float().cpu(),
+                wv.models.apply_locator(t).float().cpu())
+
+
+def check_random_init(torch, rc, report):
+    """Phase 8.1: ``WaveVerify(None, config_path=conf/base.yml, seed=0)`` on
+    the card and on the card machine's CPU: identical parameters; on the
+    card embed_batch + detect_batch at batch 64 x 1 s (CUDA events) and
+    locate_array on one clip, launches per call; card vs CPU at batch 2:
+    residual and logits within RANDOM_INIT_TOL, bits identical wherever the
+    time-mean probability is more than 1e-3 from 0.5. Returns (launches,
+    the card's WaveVerify, its weights, the batch-64 audio and bits)."""
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+
+    t0 = time.perf_counter()
+    card = WaveVerify(None, config_path=BASE_YML, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cpu = WaveVerify(None, config_path=BASE_YML, seed=0, device="cpu")
+    flat, flat_cpu = _exported(card), _exported(cpu)
+    if set(flat) != set(flat_cpu) or not all(np.array_equal(flat[k], flat_cpu[k])
+                                             for k in flat):
+        raise AssertionError("random init: the card's parameters are not the CPU's")
+    rng = np.random.RandomState(8)
+    audio = (rng.randn(BATCH, CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (BATCH, 16)).astype(np.float32)
+    emb, det, loc = _per_call(rc)
+    rc.resblock_chain.launches = 0
+    wm = card.embed_batch(audio, bits)
+    n_embed = rc.resblock_chain.launches
+    _, conf = card.detect_batch(wm)
+    n_detect = rc.resblock_chain.launches - n_embed
+    mask = card.locate_array(wm[0])
+    n_locate = rc.resblock_chain.launches - n_embed - n_detect
+    launches = rc.resblock_chain.launches
+    if (n_embed, n_detect, n_locate) != (emb, det, loc):
+        raise AssertionError(f"random init: launches {(n_embed, n_detect, n_locate)} "
+                             f"!= {(emb, det, loc)}")
+    if not (np.isfinite(wm).all() and np.isfinite(conf).all() and np.isfinite(mask).all()
+            and mask.shape == (CLIP,)):
+        raise AssertionError("random init: non-finite or misshapen output")
+    ms = cuda_time(torch, lambda: card.detect_batch(card.embed_batch(audio, bits)), 5)
+    # card vs CPU at batch 2
+    with torch.no_grad():
+        a2, m2 = torch.tensor(audio[:2]), torch.tensor(bits[:2])
+        r_cpu = cpu.models.apply_generator(a2, m2)
+        r_card = card.models.apply_generator(a2.cuda(), m2.cuda()).cpu()
+    w2 = (a2 + r_cpu).numpy()
+    (d_cpu, l_cpu), (d_card, l_card) = _logits(torch, cpu, w2), _logits(torch, card, w2)
+    dev = {"residual": float((r_card - r_cpu).abs().max()),
+           "detector_logits": float((d_card - d_cpu).abs().max()),
+           "locator_logits": float((l_card - l_cpu).abs().max())}
+    p_cpu = torch.sigmoid(d_cpu).mean(dim=1).numpy()
+    p_card = torch.sigmoid(d_card).mean(dim=1).numpy()
+    sure = np.abs(p_cpu - 0.5) > 1e-3
+    same = bool(((p_card > 0.5) == (p_cpu > 0.5))[sure].all())
+    card_now = card_line()
+    report["random_init"] = {"init_s": init_s, "embed_detect_ms_batch64": ms,
+                             "launches_per_call": {"embed_batch": n_embed,
+                                                   "detect_batch": n_detect,
+                                                   "locate_array": n_locate},
+                             "vs_cpu_max_abs_dev": dev, "decided_bits": int(sure.sum()),
+                             "same_bits": same}
+    print(f"8.1 random init (conf/base.yml, seed 0): parameters identical card/CPU; "
+          f"built in {init_s:.2f} s; launches per call embed_batch {n_embed}, "
+          f"detect_batch {n_detect}, locate_array {n_locate}; embed+detect batch "
+          f"{BATCH} x 1 s {ms:.3f} ms; card vs CPU at batch 2: max |dev| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in dev.items())
+          + f" (limit {RANDOM_INIT_TOL:.0e}), bits identical on {int(sure.sum())} "
+          f"decided bits: {same} [{card_now}]")
+    bad = {k: v for k, v in dev.items() if not v <= RANDOM_INIT_TOL}
+    if bad or not same:
+        raise AssertionError(f"random init card vs CPU: {bad}, bits same {same}")
+    return launches, card, flat, audio, bits
+
+
+def check_pth(torch, rc, report, card, flat, audio, bits):
+    """Phase 8.2: the random-init weights through the reference layout
+    (tests/reference_checkpoint.py, numpy only), saved in the atomic and
+    the un-stripped-parametrization forms, served by ``WaveVerify(pth,
+    config_path=conf/base.yml)`` on the card: logits at batch 64 within
+    PTH_TOL of the weights they came from, bits identical. Returns the
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from tests.reference_checkpoint import save_pth, to_reference_state_dicts
+    from waveverify_torch import WaveVerify
+
+    wm = card.embed_batch(audio, bits)
+    ref_logits = _logits(torch, card, wm)
+    ref_bits, _ = card.detect_batch(wm)
+    out, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for form, parametrized in (("atomic", False), ("unstripped", True)):
+            path = Path(tmp) / f"{form}.pth"
+            save_pth(path, to_reference_state_dicts(flat, parametrized))
+            t0 = time.perf_counter()
+            wv = WaveVerify(path, config_path=BASE_YML, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rc.resblock_chain.launches = 0
+            logits = _logits(torch, wv, wm)
+            got_bits, _ = wv.detect_batch(wm)
+            launches += rc.resblock_chain.launches
+            dev = max(float((a - b).abs().max()) for a, b in zip(logits, ref_logits))
+            same = bool(np.array_equal(got_bits, ref_bits))
+            out[form] = {"load_s": load_s, "max_logit_dev": dev, "same_bits": same,
+                         "bytes": path.stat().st_size}
+            print(f"8.2 .pth ({form}, {path.stat().st_size / 2**20:.1f} MiB): loaded and "
+                  f"converted in {load_s:.2f} s; batch {BATCH} logits max |dev| {dev:.2e} "
+                  f"(limit {PTH_TOL:.0e}), bits identical: {same} [{card_line()}]")
+            if not (dev <= PTH_TOL and same):
+                raise AssertionError(f".pth {form}: logit dev {dev}, bits same {same}")
+    report["pth"] = out
+    return launches
+
+
+def check_ckpt_dirs(torch, rc, report, cli_dir):
+    """Phase 8.3: phase 6's CLI output served as its tag directory and as
+    its root, bit for bit what its ``weights.npz`` serves; an orbax-shaped
+    directory raises, naming the route to an .npz. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+
+    root = Path(cli_dir)
+    rng = np.random.RandomState(9)
+    audio = (rng.randn(8, CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (8, 16)).astype(np.float32)
+    ref = WaveVerify(root / "latest" / "weights.npz", device="cuda")
+    want = ref.embed_batch(audio, bits)
+    want_bits, want_conf = ref.detect_batch(want)
+    rc.resblock_chain.launches = 0
+    for path in (root / "latest", root):
+        wv = WaveVerify(path, device="cuda")
+        w = wv.embed_batch(audio, bits)
+        b, c = wv.detect_batch(w)
+        if not (np.array_equal(w, want) and np.array_equal(b, want_bits)
+                and np.array_equal(c, want_conf)):
+            raise AssertionError(f"checkpoint directory {path} does not serve its weights")
+    launches = rc.resblock_chain.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "latest" / "state").mkdir(parents=True)
+        try:
+            WaveVerify(tmp, device="cuda")
+        except ValueError as e:
+            refused = "save_weights_npz" in str(e) and "load_params" in str(e)
+        else:
+            refused = False
+    report["ckpt_dirs"] = {"launches": launches, "orbax_refused": refused}
+    print(f"8.3 the CLI's checkpoint as tag dir and root: embed+detect bit for bit its "
+          f"weights.npz's ({launches} launches); an orbax directory refused with the "
+          f"route to an .npz: {refused}")
+    if not refused:
+        raise AssertionError("an orbax-shaped directory was not refused")
+    return launches
+
+
+def catalog_rows():
+    """The sweep's standard rows, then one row per catalog effect at the
+    JAX defaults that is not one of them."""
+    from waveverify_torch.eval import EVAL_COMBINED, EVAL_SINGLE, _effect_tag
+
+    rows = [[e] for e in EVAL_SINGLE] + [list(c) for c in EVAL_COMBINED]
+    tags = {_effect_tag(r) for r in rows}
+    return rows + [[(n, {})] for n in CATALOG_EFFECTS if n not in tags]
+
+
+def check_catalog_sweep(torch, rc, report, wv, cpu):
+    """Phase 8.4: run_sweep with every catalog row on r5 in f32: at the
+    CLI's defaults (16 x 5 s) on the card, its wall seconds and launches;
+    then card against the card machine's CPU at batch 2 x 1 s with the
+    same draws (made on a CPU generator and moved), every row within
+    CATALOG_SWEEP_LIMITS. Returns the launches."""
+    import numpy as np
+
+    from waveverify_torch.effects.effects import AudioEffects, codec_available
+    from waveverify_torch.eval import EVAL_CODECS, run_sweep
+    from waveverify_torch.train.data import SyntheticAudioDataset
+
+    rows = catalog_rows()
+    emb, det, loc = _per_call(rc)
+    n_codecs = sum(codec_available(c) for c, _, _ in EVAL_CODECS)
+    audio16 = sweep_inputs()
+    rc.resblock_chain.launches = 0
+    t0 = time.perf_counter()
+    res = run_sweep(wv, audio16, seed=0, effects=rows, include_codecs=True)
+    wall = time.perf_counter() - t0
+    launches = rc.resblock_chain.launches
+    want = emb + len(rows) * (3 * det + loc) + n_codecs * (det + loc)
+    bad = [(t, k, v) for t, r in res.items() if t != "_quality" and "ber" in r
+           for k, v in r.items() if k != "bit_acc_full" and not 0.0 <= v <= 1.0]
+    audio2 = SyntheticAudioDataset(1.0, CLIP, 3).batch(2)
+    res_card = run_sweep(wv, audio2, seed=0, effects=rows, include_codecs=False)
+    t1 = time.perf_counter()
+    res_cpu = run_sweep(cpu, audio2, seed=0, effects=rows, include_codecs=False)
+    cpu_s = time.perf_counter() - t1
+    worst = {k: (0.0, None) for k in CATALOG_SWEEP_LIMITS}
+    failed = []
+    for tag, r in res_cpu.items():
+        if tag == "_quality":
+            continue
+        for k, lim in CATALOG_SWEEP_LIMITS.items():
+            d = abs(res_card[tag][k] - r[k])
+            if d > worst[k][0]:
+                worst[k] = (d, tag)
+            if not d <= lim:
+                failed.append(f"{tag}: {k} card {res_card[tag][k]} cpu {r[k]}")
+    report["catalog_sweep"] = {"rows": len(rows), "wall_s": wall, "launches": launches,
+                               "expected_launches": want, "results": res,
+                               "card_vs_cpu_worst": worst, "cpu_s": cpu_s,
+                               "encodec_was_proxy": AudioEffects.encodec_last_was_proxy}
+    print(f"8.4 catalog sweep on r5, f32, 16 x 5 s: {len(rows)} rows + "
+          f"{len(EVAL_CODECS)} codec rows ({n_codecs} measured), {wall:.2f} s, "
+          f"{launches} launches (expected {want}); card vs CPU at 2 x 1 s (the CPU "
+          f"sweep {cpu_s:.1f} s), worst |dev| " + ", ".join(
+              f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items())
+          + f"; limits {CATALOG_SWEEP_LIMITS} [{card_line()}]")
+    for tag in sorted(t for t in res if t != "_quality" and "ber" in res[t]):
+        r = res[tag]
+        print(f"  {tag:<40} ber {r['ber']:.4f} miou {r['miou']:.4f} conf "
+              f"{r['confidence']:.4f} ber_full {r['ber_full']:.4f}")
+    if launches != want or bad or failed:
+        raise AssertionError(f"catalog sweep: launches {launches} vs {want}; "
+                             f"out of range {bad[:3]}; card vs CPU {failed[:5]}")
+    return launches
+
+
+def check_catalog_bank(torch, report):
+    """Phase 8.5a: the 20-branch bank alone, forward and backward, at
+    [20, 16000] with each row on its own branch, card against CPU with the
+    same draws: outputs within BANK_TOL, masks equal, the gradient of
+    sum(out * w) with respect to the audio within BANK_GRAD_TOL."""
+    import numpy as np
+
+    from tests.catalog import CATALOG20
+    from waveverify_torch.effects.effects import EffectBank, draw_effect, move_draws
+    from waveverify_torch.train.data import SyntheticAudioDataset
+
+    bank = EffectBank(CATALOG20)
+    n = len(bank)
+    x = torch.tensor(SyntheticAudioDataset(1.0, CLIP, 4).batch(n))
+    rng = np.random.RandomState(10)
+    mask = np.ones((n, CLIP), np.float32)
+    for i, s in enumerate(rng.randint(0, CLIP - 3200, n)):
+        mask[i, s:s + 3200] = 0.0
+    mask = torch.tensor(mask)
+    w = torch.tensor(rng.randn(n, CLIP).astype(np.float32))
+    gen = torch.Generator().manual_seed(11)
+    fx = [draw_effect(name, p, gen, n, CLIP) for name, p in bank.random_specs]
+    idx = np.arange(n)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        a = x.detach().to(dev).clone().requires_grad_(True)
+        y, m = bank.apply(a, mask.to(dev), idx, move_draws(fx, dev))
+        (y * w.to(dev)).sum().backward()
+        outs[dev] = (y.detach().cpu(), m.cpu(), a.grad.cpu())
+    (y0, m0, g0), (y1, m1, g1) = outs["cpu"], outs["cuda"]
+    per_branch = {f"{i}:{bank.specs[i][0]}": float((y1[i] - y0[i]).abs().max())
+                  for i in range(n)}
+    dev_out, dev_grad = float((y1 - y0).abs().max()), float((g1 - g0).abs().max())
+    masks_equal = bool(torch.equal(m0, m1))
+    report["catalog_bank"] = {"max_out_dev": dev_out, "max_grad_dev": dev_grad,
+                              "masks_equal": masks_equal, "per_branch": per_branch}
+    worst = max(per_branch, key=per_branch.get)
+    print(f"8.5a 20-branch bank at [{n}, {CLIP}], card vs CPU: outputs max |dev| "
+          f"{dev_out:.2e} (worst {worst}; limit {BANK_TOL:.0e}), masks equal "
+          f"{masks_equal}, d sum(out * w) / d audio max |dev| {dev_grad:.2e} (limit "
+          f"{BANK_GRAD_TOL:.0e})")
+    if not (dev_out <= BANK_TOL and dev_grad <= BANK_GRAD_TOL and masks_equal):
+        raise AssertionError(f"20-branch bank card vs CPU: {per_branch}, grad {dev_grad}")
+
+
+def check_catalog_cli(torch, rc, report):
+    """Phase 8.5c: the training CLI's entry point at TrainConfig() for
+    CATALOG_CLI_STEPS steps with one validation, from an effects YAML whose
+    train_effects, eval_effects and effect_param_grid list all 20 on-device
+    effects: finite losses, the launches, ms per step (median after 3
+    warm-up). Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from tests.catalog import CATALOG20, catalog_yaml
+    from waveverify_torch.train.__main__ import main as train_main
+
+    emb, det, loc = _per_call(rc)
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    # the steps, one validation (generator, then detector and locator per
+    # effect of the 20-row sweep) and one sample dump (generator)
+    expected = CATALOG_CLI_STEPS * per_step + emb + len(CATALOG20) * (det + loc) + emb
+    with tempfile.TemporaryDirectory() as tmp:
+        fx = Path(tmp) / "catalog.yml"
+        fx.write_text(catalog_yaml())
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        t0 = time.perf_counter()
+        train_main(["--max-steps", str(CATALOG_CLI_STEPS), "--ckpt-dir",
+                    str(Path(tmp) / "run"), "--log-every", "1", "--effects-config",
+                    str(fx)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rc.resblock_chain.launches
+        lines = [json.loads(x) for x in
+                 (Path(tmp) / "run" / "train_log.jsonl").read_text().splitlines()]
+    steps = [r for r in lines if "loss" in r]
+    vals = [r for r in lines if "val/loss" in r]
+    ms = float(np.median([r["step_time"] for r in steps[3:]])) * 1e3
+    n_val = sum(k.startswith("val/ber/") for k in vals[-1]) if vals else 0
+    report["catalog_cli"] = {"steps": len(steps), "wall_s": wall, "launches": launches,
+                             "expected_launches": expected, "ms_per_step": ms,
+                             "val_rows": n_val, "last": steps[-1]}
+    print(f"8.5c train CLI with the 20-effect YAML at TrainConfig(), {len(steps)} steps "
+          f"+ 1 validation ({n_val} rows) in {wall:.1f} s: {launches} launches "
+          f"(expected {expected}); {ms:.3f} ms per step (median of steps 3-"
+          f"{len(steps) - 1}, the log's step_time) [{card_line()}]")
+    if len(steps) != CATALOG_CLI_STEPS or len(vals) != 1 or n_val != len(CATALOG20):
+        raise AssertionError(f"catalog CLI: {len(steps)} steps, {len(vals)} "
+                             f"validations, {n_val} rows")
+    for r in lines:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"catalog CLI: non-finite {bad} at step {r['step']}")
+    if launches != expected:
+        raise AssertionError(f"catalog CLI: {launches} launches, expected {expected}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1691,10 +2114,13 @@ def main() -> int:
           f"{bound * 1e3:.3f} ms ({TF32_PASSES} TF32 passes at "
           f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); f32 FMA bound {fma_bound * 1e3:.3f} ms")
     # 6. training: the chain's gradients under checkpoint, one step on the
-    # card against the CPU, the CLI's run, times
+    # card against the CPU, the CLI's run (its checkpoint kept for phase 8),
+    # times
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    atexit.register(shutil.rmtree, cli_dir, True)
     check_chain_grads(torch, rc, report)
     path_launches["train_step"] = check_train_step(torch, rc, report)
-    path_launches["train_cli"] = check_train_cli(torch, rc, report)
+    path_launches["train_cli"] = check_train_cli(torch, rc, report, cli_dir)
     time_training(torch, rc, report)
     # 7. the training controllers: the r5 continuation, a gated start, two
     # gated steps on the card against the CPU (every gate closed; the
@@ -1714,6 +2140,37 @@ def main() -> int:
         gates=dict(percep_scale=1.0, train_disc=True, gen_update_scale=1.0,
                    msg_update_scale=0.0, bit_mask=four_bits))
     time_controlled_steps(torch, rc, report)
+    # 8. the rest of the user surface: random init, a reference .pth, the
+    # trainer's checkpoint directories, the whole effect catalog in the
+    # sweep and in training
+    from tests.catalog import CATALOG20
+    from waveverify_torch.effects.effects import EffectBank
+
+    (path_launches["random_init"], card_init, flat_init, audio64,
+     bits64) = check_random_init(torch, rc, report)
+    path_launches["pth"] = check_pth(torch, rc, report, card_init, flat_init,
+                                     audio64, bits64)
+    path_launches["ckpt_dirs"] = check_ckpt_dirs(torch, rc, report, cli_dir)
+    path_launches["catalog_sweep"] = check_catalog_sweep(
+        torch, rc, report, servers["float32"], cpu)
+    check_catalog_bank(torch, report)
+    # broadband clips: on the synthetic ones (harmonics below ~1.5 kHz) the
+    # spec blocks' log-STFT features of the near-silent high bands leave the
+    # generator's gradient ill-conditioned at random init unless the attack
+    # band-limits it, as the shipped bank's filters do and the new branches
+    # do not (audio * (1 +- 1e-7) then moves the generator's FiLM-bias
+    # gradients by more than themselves). Even here a FiLM bias moves by a
+    # few percent, so each leaf is held to four times its own spread on the
+    # card where that exceeds TRAIN_GRAD_TOL (spread=True; the report keeps
+    # the spread)
+    names = [n for n, _ in CATALOG20]
+    path_launches["catalog_train_step"] = check_train_step(
+        torch, rc, report, label="catalog_train_step_check",
+        bank=EffectBank(CATALOG20),
+        idx=np.array([names.index("pink_noise"), names.index("median_filter")]),
+        audio=(np.random.RandomState(3).randn(2, CLIP) * 0.1).astype(np.float32),
+        spread=True)
+    path_launches["catalog_cli"] = check_catalog_cli(torch, rc, report)
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tests.torch_jax_bridge import (
+    jax_bank_draws,
     jax_draws,
     jax_localization_draws,
     jax_params,
@@ -100,10 +101,8 @@ def test_effect_bank_matches_jax_on_all_branches():
     assert bank.specs == jbank.specs
     ref_a, ref_m = jax.jit(jbank.apply)(jnp.asarray(wm), jnp.asarray(mask),
                                         jnp.asarray(idx), key)
-    keys = jax.random.split(key, len(jbank))
-    noise = torch.from_numpy(np.stack([np.asarray(jax.random.normal(keys[i], (b, t)))
-                                       for i in bank.noise_branches]))
-    a, m = bank.apply(torch.from_numpy(wm), torch.from_numpy(mask), idx, noise)
+    fx = jax_bank_draws(key, bank.specs, b, t)
+    a, m = bank.apply(torch.from_numpy(wm), torch.from_numpy(mask), idx, fx)
     np.testing.assert_allclose(a.numpy(), np.asarray(ref_a), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(m.numpy(), np.asarray(ref_m))
 
@@ -112,10 +111,10 @@ def test_effect_bank_runs_each_branch_on_its_rows_only():
     bank = EffectBank(DEFAULT_TRAIN_EFFECTS)
     x = torch.randn(3, 4000, generator=torch.Generator().manual_seed(0))
     mask = torch.ones_like(x)
-    noise = torch.randn(1, 3, 4000, generator=torch.Generator().manual_seed(1))
-    a, _ = bank.apply(x, mask, np.array([0, 0, 8]), noise)
+    noise = torch.randn(3, 4000, generator=torch.Generator().manual_seed(1))
+    a, _ = bank.apply(x, mask, np.array([0, 0, 8]), [{"noise": noise}])
     assert torch.equal(a[:2], x[:2])
-    torch.testing.assert_close(a[2], x[2] + 0.001 * noise[0, 2])
+    torch.testing.assert_close(a[2], x[2] + 0.001 * noise[2])
 
 
 def test_scheduler_selections_equal_jax():
@@ -175,7 +174,7 @@ def test_forward_train_extra_paths_match_jax(branch_setup, clean, lowband, jitte
         clean_detector=clean, jitter_hop=jitter, lowband_cutoff=cutoff))(
             wm, orig, msg, idx)
     bank = EffectBank(bank_specs)
-    d = jax_draws(key, 0, b, t, len(bank_specs), bank.noise_branches,
+    d = jax_draws(key, 0, b, t, bank_specs,
                   jitter_hop=jitter)
     with torch.no_grad():
         out = forward_train(models, torch.from_numpy(orig), torch.from_numpy(msg),

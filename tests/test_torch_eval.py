@@ -169,6 +169,9 @@ def test_cli_writes_the_jax_json_layout(pair, tmp_path, capsys):
     assert "identity" in capsys.readouterr().out
 
 
-def test_cli_requires_a_checkpoint():
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu"])
+def test_cli_requires_a_checkpoint(tmp_path):
+    """``--checkpoint`` is optional, as in the JAX CLI (without it the sweep
+    runs on random-init weights: ``test_torch_sweep_catalog.py``); a
+    checkpoint that is not there is refused."""
+    with pytest.raises(FileNotFoundError):
+        main(["--checkpoint", str(tmp_path / "missing.npz"), "--device", "cpu"])

@@ -92,9 +92,25 @@ tcfg = dataclasses.replace(
                     mel_window_lengths=(128,)))
 state = create_train_state(tcfg, torch.Generator().manual_seed(0), torch.device("cpu"))
 bank = EffectBank(DEFAULT_TRAIN_EFFECTS)
-d = draw(torch.Generator().manual_seed(1), 2, 960, len(bank.noise_branches))
+d = draw(torch.Generator().manual_seed(1), 2, 960, bank.random_specs)
 m = train_step(state, tcfg, bank, audio, msg, np.array([0, 8]), d)
 assert bool(torch.isfinite(m["loss"])) and state.step == 1
+# the rest of the user surface: the converter, the decoders, the examples,
+# random init, the whole effect catalog
+import waveverify_torch.api.codecs
+import waveverify_torch.convert
+import waveverify_torch.examples.basic_usage
+import waveverify_torch.examples.watermark_strategies
+import waveverify_torch.examples.web_api_integration
+from waveverify_torch.effects.effects import RANDOM_EFFECTS, draw_effect
+wv = waveverify_torch.WaveVerify(None, config=cfg, device="cpu")
+for name in ("random_equalization", "echo", "white_noise", "pink_noise",
+             "amplitude_scaling", "quantization", "sample_suppression", "shush",
+             "median_filter", "smooth", "codec_proxy", "encodec"):
+    kw = (draw_effect(name, {}, torch.Generator().manual_seed(2), 2, clip.shape[1])
+          if name in RANDOM_EFFECTS else {})
+    y, _ = getattr(AudioEffects, name)(clip, None, None, **kw)
+    assert y.shape == clip.shape and bool(torch.isfinite(y).all()), name
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

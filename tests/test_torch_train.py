@@ -16,9 +16,8 @@ import torch
 
 from tests.torch_jax_bridge import (
     jax_draws,
-    jax_localization_draws,
     jax_params,
-    jax_sequence_draws,
+    jax_val_draws,
     tiny_configs,
     unflatten,
 )
@@ -46,7 +45,7 @@ from waveverify_torch.effects.augment import (
 from waveverify_torch.effects.effects import EffectBank
 from waveverify_torch.train.state import create_train_state, make_optimizer, wm_param_groups
 from waveverify_torch.train.step import train_step, val_step
-from waveverify_torch.train.watermarking import Draws, draw, forward_train
+from waveverify_torch.train.watermarking import draw, forward_train
 from waveverify_torch.weights import export_params
 
 torch.set_num_threads(2)
@@ -109,7 +108,7 @@ def test_forward_train_matches_jax(setup):
     ref = jax.jit(lambda p, a, m, i: jforward_train(
         jmodels, p, k_fwd, a, m, i, jbank, remat=False))(
             jstate.wm_params, audio, msg, idx)
-    d = jax_draws(KEY, 0, B, T, len(BANK), bank.noise_branches)
+    d = jax_draws(KEY, 0, B, T, BANK)
     with torch.no_grad():
         out = forward_train(init.models, torch.from_numpy(audio),
                             torch.from_numpy(msg), idx, bank, d, remat=False)
@@ -129,7 +128,7 @@ def test_forward_train_matches_jax(setup):
             a, out["watermarked"], d.loc_scores, d.loc_probs, d.loc_offset)
         aug, _, mask = sequence_augmentation(aug, orig, mask, d.seq_u,
                                              d.seq_shift, d.seq_perm)
-        fx = bank.apply(aug, mask, idx, d.noise)[0]
+        fx = bank.apply(aug, mask, idx, d.fx)[0]
         det, loc = (init.models.apply_detector(fx),
                     init.models.apply_locator(fx))
     np.testing.assert_allclose(fx.numpy(), np.asarray(fx_ref), rtol=1e-5,
@@ -150,7 +149,7 @@ def _port_step(tcfg, audio, msg, idx, scale=1.0):
     state = create_train_state(tcfg, torch.Generator().manual_seed(0),
                                torch.device("cpu"))
     bank = EffectBank(BANK)
-    d = jax_draws(KEY, 0, B, T, len(BANK), bank.noise_branches)
+    d = jax_draws(KEY, 0, B, T, BANK)
     metrics = train_step(state, tcfg, bank, torch.from_numpy(audio) * scale,
                          torch.from_numpy(msg), idx, d)
     return state, metrics
@@ -378,16 +377,7 @@ def test_val_step_matches_jax(setup):
     audio, msg, _ = _inputs()
     key = jax.random.PRNGKey(9)
     ref = jax.jit(make_val_step(jmodels, jcfg, EVAL))(jstate, audio, msg, key)
-    # the validation key chain: localization, sequence, then one key per
-    # effect of the sweep
-    k_loc, k_seq, k = jax.random.split(key, 3)
-    noise = []
-    for name, _ in EVAL:
-        k, sub = jax.random.split(k)
-        if name == "random_noise":
-            noise.append(np.asarray(jax.random.normal(sub, (B, T))))
-    d = Draws(*jax_localization_draws(k_loc, B, T), *jax_sequence_draws(k_seq, T),
-              torch.from_numpy(np.stack(noise)))
+    d = jax_val_draws(key, EVAL, B, T)
     out = val_step(init, tcfg, torch.from_numpy(audio), torch.from_numpy(msg),
                    d, EVAL)
     assert set(out) == set(ref)
@@ -404,7 +394,7 @@ def test_remat_on_equals_off():
     _, tcfg = tiny_configs(B)
     audio, msg, idx = _inputs()
     bank = EffectBank(BANK)
-    d = draw(torch.Generator().manual_seed(4), B, T, len(bank.noise_branches))
+    d = draw(torch.Generator().manual_seed(4), B, T, bank.random_specs)
     results = []
     for remat in (True, False):
         state = create_train_state(tcfg, torch.Generator().manual_seed(3),
@@ -432,7 +422,7 @@ def test_chain_cache_sees_optimizer_step():
     with torch.no_grad():
         before = state.models.apply_generator(a, m)
     train_step(state, tcfg, bank, a, m, idx,
-               draw(torch.Generator().manual_seed(6), B, T, len(bank.noise_branches)))
+               draw(torch.Generator().manual_seed(6), B, T, bank.random_specs))
     with torch.no_grad():
         after = state.models.apply_generator(a, m)
         fresh = copy.deepcopy(state.models).apply_generator(a, m)
@@ -465,7 +455,7 @@ def gated_steps(setup):
     audio, msg, idx = _inputs()
     jstep = jax.jit(make_train_step(jmodels, jcfg, JBank(BANK)))
     bank = EffectBank(BANK)
-    d = jax_draws(KEY, 0, B, T, len(BANK), bank.noise_branches)
+    d = jax_draws(KEY, 0, B, T, BANK)
     out = {}
     for name, g in GATES.items():
         mask = (np.arange(16) < g["n_bits"]).astype(np.float32)

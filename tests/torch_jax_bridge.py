@@ -1,6 +1,9 @@
 """Shared pieces of the training parity tests: one tiny configuration in
 both packages, parameters carried from the port to a JAX tree, and the
-JAX package's key chain turned into the port's :class:`Draws`."""
+JAX package's key chain turned into the port's :class:`Draws` and into
+each random effect's draws."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +12,7 @@ import torch
 
 from waveverify_tpu import config as jcfg
 from waveverify_torch import config as tcfg
+from waveverify_torch.effects.effects import RANDOM_EFFECTS
 from waveverify_torch.train.watermarking import Draws
 from waveverify_torch.weights import export_params
 
@@ -57,26 +61,81 @@ def jax_params(models):
     return wm, disc
 
 
-def jax_draws(key, step, b, t, bank_len, noise_branches, sample_rate=16000,
+def jax_draws(key, step, b, t, bank_specs, sample_rate=16000,
               window_duration=0.1, jitter_hop=0):
     """The draws of JAX ``make_train_step``'s step ``step`` under ``key``,
-    as the port's Draws (the key chain of step.py and watermarking.py)."""
+    as the port's Draws (the key chain of step.py and watermarking.py);
+    ``bank_specs`` is the bank's (name, params) list."""
     k_fwd, k_gp = jax.random.split(jax.random.fold_in(key, step))
     k_loc, k_seq, k_fx, k_jit, k_jit_clean = jax.random.split(k_fwd, 5)
     scores, probs, offset = jax_localization_draws(k_loc, b, t, sample_rate,
                                                    window_duration)
     u, shift, perm = jax_sequence_draws(k_seq, t, sample_rate)
-    keys = jax.random.split(k_fx, bank_len)
-    noise = np.stack([np.asarray(jax.random.normal(keys[i], (b, t)))
-                      for i in noise_branches]) if noise_branches else np.zeros((0, b, t))
+    fx = jax_bank_draws(k_fx, bank_specs, b, t)
     jitter = jitter_clean = None
     if jitter_hop > 0:
         jitter = to_torch(jax.random.randint(k_jit, (b,), 0, jitter_hop))
         jitter_clean = to_torch(jax.random.randint(k_jit_clean, (b,), 0, jitter_hop))
     alpha = jax.random.uniform(k_gp, (b, 1))[:, 0]
-    return Draws(scores, probs, offset, u, shift, perm,
-                 torch.from_numpy(np.asarray(noise, np.float32)), jitter,
+    return Draws(scores, probs, offset, u, shift, perm, fx, jitter,
                  jitter_clean, to_torch(alpha))
+
+
+def jax_bank_draws(key, bank_specs, b, t):
+    """The draws of each random branch of the JAX "stack" bank under
+    ``key``: branch i's key is ``split(key, n_branches)[i]``."""
+    keys = jax.random.split(key, len(bank_specs))
+    return [jax_effect_draws(name, params, keys[i], b, t)
+            for i, (name, params) in enumerate(bank_specs)
+            if name in RANDOM_EFFECTS]
+
+
+def jax_val_draws(key, eval_effects, b, t, sample_rate=16000,
+                  window_duration=0.1):
+    """The draws of JAX ``forward_valid`` under ``key``: localization,
+    sequence, then one key per effect of the sweep."""
+    k_loc, k_seq, k = jax.random.split(key, 3)
+    fx = []
+    for name, params in eval_effects:
+        k, sub = jax.random.split(k)
+        if name in RANDOM_EFFECTS:
+            fx.append(jax_effect_draws(name, params, sub, b, t))
+    return Draws(*jax_localization_draws(k_loc, b, t, sample_rate,
+                                         window_duration),
+                 *jax_sequence_draws(k_seq, t, sample_rate), fx)
+
+
+def jax_effect_draws(name, params, key, b, t):
+    """What JAX ``AudioEffects.<name>`` draws from ``key`` on ``[b, t]``
+    audio, as the keyword arguments the port's effect takes
+    (waveverify_tpu/effects/effects.py: each effect's own key splits)."""
+    if name in ("random_noise", "white_noise"):
+        return {"noise": to_torch(jax.random.normal(key, (b, t)))}
+    if name == "sample_suppression":
+        return {"u": to_torch(jax.random.uniform(key, (b, t)))}
+    if name == "pink_noise":
+        rows = []
+        for d in range(params.get("depth", 16)):
+            key, sub = jax.random.split(key)
+            rows.append(to_torch(jax.random.normal(sub, (b, -(-t // (1 << d))))))
+        return {"rows": rows}
+    if name == "random_equalization":
+        lo, hi = params.get("freq_range", (200.0, 4000.0))
+        g_lo, g_hi = params.get("gain_range", (-6.0, 6.0))
+        kf, kg = jax.random.split(key)
+        return {"log_freq": to_torch(jax.random.uniform(
+                    kf, (), minval=math.log(lo), maxval=math.log(hi))),
+                "gain_db": to_torch(jax.random.uniform(
+                    kg, (), minval=g_lo, maxval=g_hi))}
+    if name == "echo":
+        v_lo, v_hi = params.get("volume_range", (0.1, 0.5))
+        d_lo, d_hi = params.get("duration_range", (0.1, 0.5))
+        kd, kv = jax.random.split(key)
+        return {"duration": to_torch(jax.random.uniform(
+                    kd, (), minval=d_lo, maxval=d_hi)),
+                "volume": to_torch(jax.random.uniform(
+                    kv, (), minval=v_lo, maxval=v_hi))}
+    raise ValueError(f"{name} draws nothing")
 
 
 def jax_localization_draws(k_loc, b, t, sample_rate=16000, window_duration=0.1):

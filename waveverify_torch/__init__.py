@@ -10,3 +10,12 @@ from waveverify_torch.api.core import WaveVerify
 from waveverify_torch.api.watermark_id import WatermarkID
 
 __all__ = ["WaveVerify", "WatermarkID"]
+
+
+def __getattr__(name):
+    # the converter reads torch checkpoints; imported on first use
+    if name == "convert_torch_checkpoint":
+        from waveverify_torch.convert import convert_torch_checkpoint
+
+        return convert_torch_checkpoint
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,9 +1,10 @@
 """Audio file I/O and message conversion for the port's public API
 (counterpart of ``waveverify_tpu/api/audio_io.py``).
 
-WAV is read and written with the stdlib ``wave`` module (mono mixdown,
-16-bit PCM out); other sample rates are resampled to 16 kHz with
-``scipy.signal.resample_poly``. Other codecs are not ported yet.
+Files are decoded by content (``api/codecs.py``): WAV with the stdlib
+``wave`` module, FLAC with the native decoder, other containers through
+``ffmpeg`` when it is on ``PATH``; mono mixdown, resampled to 16 kHz with
+``scipy.signal.resample_poly``. Output is 16-bit PCM WAV.
 """
 
 from __future__ import annotations
@@ -16,6 +17,33 @@ from typing import Tuple, Union
 import numpy as np
 
 TARGET_SAMPLE_RATE = 16000
+
+# the reference ships an empty placeholder URL
+DEFAULT_CHECKPOINT_URL = ""
+
+
+def download_checkpoint(url: str = DEFAULT_CHECKPOINT_URL,
+                        dest_dir: Union[str, Path] = "~/.cache/waveverify_torch"
+                        ) -> Path:
+    """Fetch and unpack a checkpoint archive into ``dest_dir``. No URL is
+    configured, so this raises unless one is passed; pass
+    ``checkpoint_path=`` to ``WaveVerify`` instead."""
+    if not url:
+        raise ValueError(
+            "no checkpoint URL configured (the reference ships an empty "
+            "placeholder too); pass checkpoint_path= to WaveVerify instead")
+    import tarfile
+    import urllib.request
+
+    dest = Path(dest_dir).expanduser()
+    dest.mkdir(parents=True, exist_ok=True)
+    archive = dest / Path(url).name
+    if not archive.exists():
+        urllib.request.urlretrieve(url, archive)
+    if archive.suffixes[-2:] == [".tar", ".gz"] or archive.suffix == ".tgz":
+        with tarfile.open(archive) as tf:
+            tf.extractall(dest)
+    return dest
 
 
 def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
@@ -56,15 +84,14 @@ def resample(x: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
 def load_audio(path: Union[str, Path],
                target_sample_rate: int = TARGET_SAMPLE_RATE
                ) -> Tuple[np.ndarray, int]:
-    """Load a WAV file as mono float32 at ``target_sample_rate``."""
+    """Load an audio file, decoded by its content, as mono float32 at
+    ``target_sample_rate``: (audio [T], rate)."""
+    from waveverify_torch.api.codecs import decode_auto
+
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"audio file not found: {path}")
-    with open(path, "rb") as f:
-        head = f.read(12)
-    if not (head[:4] == b"RIFF" and head[8:12] == b"WAVE"):
-        raise ValueError(f"{path}: only WAV is supported by this port so far")
-    audio, sr = read_wav(path)
+    audio, sr = decode_auto(path)
     if sr != target_sample_rate:
         audio = resample(audio, sr, target_sample_rate)
         sr = target_sample_rate

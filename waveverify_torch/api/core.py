@@ -10,7 +10,11 @@ length. Audio longer than ``long_threshold`` goes through fixed windows
 (the chunked long-audio path). Runs on ``cuda`` unless ``device="cpu"``
 is passed.
 
-Not ported yet: multi-card serving and checkpoints other than ``.npz``.
+Weights come from a ``save_weights_npz`` file, a reference ``.pth`` (the
+paper's checkpoint format, converted by ``waveverify_torch.convert``), a
+checkpoint directory of the port's trainer, or random initialisation from
+a seed; the JAX trainer's orbax directories are refused with the route to
+an ``.npz``. Not ported yet: multi-card serving.
 """
 
 from __future__ import annotations
@@ -30,15 +34,15 @@ from waveverify_torch.api.audio_io import (
     tensor_to_message,
 )
 from waveverify_torch.api.watermark_id import WatermarkID
-from waveverify_torch.config import TrainConfig, apply_model_config
+from waveverify_torch.config import TrainConfig, apply_model_config, load_config
 from waveverify_torch.models import WatermarkModels
 from waveverify_torch.serve import (
     locate_probs,
     resolve_device,
     resolve_dtype,
-    strict_f32,
+    set_conv_precision,
 )
-from waveverify_torch.weights import load_params, read_npz
+from waveverify_torch.weights import flatten, load_params, read_npz
 
 logger = logging.getLogger(__name__)
 
@@ -57,34 +61,114 @@ def _next_bucket(length: int, hop: int = 320, min_len: int = 4800) -> int:
 class WaveVerify:
     """Embed, detect, locate and verify 16-bit watermarks.
 
-    checkpoint_path: a ``.npz`` written by the JAX package's
-        ``save_weights_npz``; its ``__config__`` snapshot sets the
-        architecture.
+    checkpoint_path:
+        - a ``.npz`` written by ``save_weights_npz`` (either package), its
+          ``__config__`` snapshot setting the architecture;
+        - a reference PyTorch ``.pth`` / ``.pt`` / ``.ckpt``, converted on
+          load (it carries no snapshot: the architecture comes from
+          ``config_path`` / ``config``);
+        - a checkpoint directory of the port's trainer: a tag directory
+          holding ``weights.npz``, or a root holding ``latest/``;
+        - ``None``: random initialisation from ``seed`` (drawn on a CPU
+          generator, so a seed gives the same weights on every device);
+          embedding works end to end, detection needs trained weights.
+        An orbax directory of the JAX trainer raises, naming the JAX
+        functions that turn it into an ``.npz``.
+    config_path: a YAML of the ``conf/base.yml`` schema. config: a
+        ``TrainConfig``. An explicit ``config`` wins; otherwise the
+        checkpoint's snapshot overrides the YAML's (or the defaults')
+        model sections, with a WARNING when a YAML was given too.
+    precision: ``"highest"`` (the default) turns TF32 off for cuDNN and
+        cuBLAS, so f32 computes in f32; ``"high"`` / ``"default"`` allow
+        TF32; ``None`` leaves the process-wide setting alone. A
+        process-wide PyTorch setting; the chain kernel ignores it.
+    serve_dtype: ``"float32"`` or ``"bfloat16"`` network activations;
+        audio, sums and decisions stay f32 either way.
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
-    serve_dtype: ``"float32"`` (TF32 turned off) or ``"bfloat16"`` network
-        activations; audio, sums and decisions stay f32 either way.
     """
 
-    def __init__(self, checkpoint_path: Union[str, Path],
-                 device: Union[str, torch.device] = "cuda",
-                 serve_dtype: str = "float32"):
-        path = Path(checkpoint_path)
-        if path.suffix != ".npz":
-            raise ValueError(f"{path}: only .npz checkpoints are supported so far")
+    def __init__(self, checkpoint_path: Optional[Union[str, Path]] = None,
+                 config_path: Optional[Union[str, Path]] = None,
+                 config: Optional[TrainConfig] = None,
+                 seed: int = 0,
+                 precision: Optional[str] = "highest",
+                 serve_dtype: str = "float32",
+                 device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.serve_dtype = serve_dtype
         self._act = resolve_dtype(serve_dtype)
-        if self._act == torch.float32 and self.device.type == "cuda":
-            strict_f32()
-        flat, snap = read_npz(path)
-        self.config = apply_model_config(TrainConfig(), snap or {})
+        if precision is not None:
+            set_conv_precision(precision)
+        path = None if checkpoint_path is None else Path(checkpoint_path)
+        is_pth = path is not None and path.suffix in (".pth", ".pt", ".ckpt")
+        flat, snap = (None, None) if path is None or is_pth else self._read_npz(path)
+        self.config = config if config is not None else load_config(config_path)
+        if config is None and snap:
+            if config_path is not None:
+                logger.warning(
+                    "checkpoint model-config snapshot overrides the explicit "
+                    "config YAML for model sections %s - pass "
+                    "config=load_config(%r) to force the YAML instead",
+                    sorted(snap.keys()), str(config_path))
+            self.config = apply_model_config(self.config, snap)
+            logger.info("applied model-config snapshot from checkpoint")
         self.models = WatermarkModels(self.config)
-        for net in ("generator", "detector", "locator"):
-            load_params(getattr(self.models, net), flat, net)
+        if path is None:
+            logger.warning("no checkpoint given - using randomly initialized "
+                           "weights")
+            from waveverify_torch.modules.conv import init_params
+
+            init_params(self.models, torch.Generator().manual_seed(seed))
+        else:
+            if is_pth:  # the architecture is needed to convert
+                from waveverify_torch.convert import convert_torch_checkpoint
+
+                logger.info("converting PyTorch checkpoint %s", path)
+                flat = flatten(convert_torch_checkpoint(path, self.config,
+                                                        models=self.models))
+            for net in ("generator", "detector", "locator"):
+                load_params(getattr(self.models, net), flat, net)
         self.models.requires_grad_(False)
         self.models.eval().to(self.device)
         self.sample_rate = self.config.generator.sample_rate
         self.hop = self.config.generator.hop_length
+
+    # -- checkpoints ---------------------------------------------------------------
+
+    @staticmethod
+    def _weights_file(path: Path) -> Optional[Path]:
+        """The ``weights.npz`` of a port checkpoint directory (a tag
+        directory, or a root holding ``latest/``); raises on an orbax
+        directory."""
+        from waveverify_torch.train.checkpoint import orbax_refusal
+
+        for tag_dir in (path, path / "latest"):
+            if (tag_dir / "state").is_dir():
+                raise ValueError(orbax_refusal(tag_dir))
+            if (tag_dir / "weights.npz").exists():
+                return tag_dir / "weights.npz"
+        return None
+
+    @classmethod
+    def _read_npz(cls, path: Path):
+        """(flat flax-named arrays, architecture snapshot or None) of an
+        ``.npz`` or of a checkpoint directory's ``weights.npz``; a
+        directory's snapshot falls back to its ``meta.json``'s
+        ``model_config``."""
+        import json
+
+        npz = path if path.suffix == ".npz" else (
+            cls._weights_file(path) if path.is_dir() else None)
+        if npz is None:
+            raise FileNotFoundError(
+                f"no checkpoint found at {path} (expected a .npz, a .pth, or "
+                "a checkpoint directory of the port's trainer)")
+        logger.info("loading %s", npz)
+        flat, snap = read_npz(npz)
+        for meta in (path / "meta.json", path / "latest" / "meta.json"):
+            if not snap and path.is_dir() and meta.exists():
+                snap = json.loads(meta.read_text()).get("model_config")
+        return flat, snap
 
     # -- device programs -------------------------------------------------------
 

@@ -1,0 +1,364 @@
+"""Reference PyTorch checkpoints -> the port's parameters (counterpart of
+``waveverify_tpu/convert.py``; numpy and ``torch.load``).
+
+Converts the reference's atomic ``.pth`` checkpoints (``{step, models:
+{generator, detector, locator, discriminator}, ...}``), composite and bare
+state dicts, and per-component state dicts (``module.`` / ``_orig_mod.``
+prefixes stripped) into the JAX package's flax-named tree, which
+``weights.load_params`` copies into the port's modules: the same tree the
+JAX package's ``convert_torch_checkpoint`` gives.
+
+Weight norm: the reference strips parametrizations before saving, so state
+dicts hold fused kernels ``W``; ``v = W, g = ||W||`` (in float64, cast to
+f32) reproduces it (``g * v / ||v|| == W``). Un-stripped checkpoints
+(``parametrizations.weight.original0/1``) are fused first with the same
+math. Layouts: torch Conv1d ``(Cout, Cin/g, K)`` -> WIO ``(K, Cin/g,
+Cout)``; ConvTranspose1d kept; Conv2d -> HWIO; Linear ``(out, in)`` ->
+``(in, out)``.
+
+Orbax directories are not read here (that needs JAX); the JAX package's
+``save_weights_npz`` makes an ``.npz`` the port reads.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+
+from waveverify_torch.config import TrainConfig
+
+logger = logging.getLogger(__name__)
+
+Array = np.ndarray
+StateDict = Dict[str, Array]
+
+
+def load_torch_state_dicts(path: Union[str, Path]) -> Dict[str, StateDict]:
+    """Load a reference checkpoint into numpy per-model state dicts.
+
+    Accepts the atomic format (dict with a 'models' key), a bare composite
+    state dict, or a single-model state dict.
+    """
+    import torch
+
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "models" in ckpt:
+        models = ckpt["models"]
+    elif isinstance(ckpt, dict) and all(
+        isinstance(v, dict) for v in ckpt.values()
+    ) and {"generator", "detector", "locator"} & set(ckpt.keys()):
+        models = ckpt
+    else:
+        # bare composite state dict: split on the leading component name
+        models = {}
+        for key, value in ckpt.items():
+            comp, _, rest = key.partition(".")
+            models.setdefault(comp, {})[rest] = value
+
+    out: Dict[str, StateDict] = {}
+    for name, sd in models.items():
+        if not isinstance(sd, dict):
+            continue
+        if hasattr(sd, "items"):
+            out[name] = {
+                _strip_prefix(k): np.asarray(v.detach().cpu().numpy(), np.float32)
+                if hasattr(v, "detach") else np.asarray(v, np.float32)
+                for k, v in sd.items()
+            }
+    return {k: fuse_parametrizations(v) for k, v in out.items()}
+
+
+def _strip_prefix(key: str) -> str:
+    for prefix in ("module.", "_orig_mod."):
+        if key.startswith(prefix):
+            key = key[len(prefix):]
+    return key
+
+
+def fuse_parametrizations(sd: StateDict) -> StateDict:
+    """Fuse un-stripped torch parametrization keys into plain weights
+    (weight_norm: W = g * v / ||v||, norm over all dims but 0 — the math in
+    reference scripts/train.py:1560-1577)."""
+    out: StateDict = {}
+    done = set()
+    for key in sd:
+        m = re.match(r"(.*)\.parametrizations\.weight\.original0$", key)
+        if not m:
+            continue
+        base = m.group(1)
+        g = sd[key]
+        v = sd[f"{base}.parametrizations.weight.original1"]
+        axes = tuple(range(1, v.ndim))
+        norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
+        out[f"{base}.weight"] = (g * v / np.maximum(norm, 1e-12)).astype(np.float32)
+        done.add(key)
+        done.add(f"{base}.parametrizations.weight.original1")
+    for key, value in sd.items():
+        if key not in done and ".parametrizations." not in key:
+            out.setdefault(key, value)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Leaf converters
+# ---------------------------------------------------------------------------
+
+
+def _norm_conv(sd: StateDict, prefix: str, transposed: bool = False
+               ) -> Dict[str, Array]:
+    """Fused torch conv weight -> NormConv{1d,Transpose1d} (v, g[, b])."""
+    w = sd[f"{prefix}.weight"]
+    if transposed:
+        v = w  # (Cin, Cout/g, K) — our transposed layout matches torch
+        axes = tuple(range(1, v.ndim))
+    elif w.ndim == 4:
+        v = np.transpose(w, (2, 3, 1, 0))  # -> HWIO
+        axes = (0, 1, 2)
+    else:
+        v = np.transpose(w, (2, 1, 0))  # -> WIO
+        axes = (0, 1)
+    params = {
+        "v": np.ascontiguousarray(v),
+        "g": np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes)).astype(
+            np.float32
+        ),
+    }
+    if f"{prefix}.bias" in sd:
+        params["b"] = sd[f"{prefix}.bias"]
+    return params
+
+
+def _plain_conv(sd: StateDict, prefix: str, transposed: bool = False
+                ) -> Dict[str, Array]:
+    w = sd[f"{prefix}.weight"]
+    v = w if transposed else np.transpose(w, (2, 1, 0))
+    params = {"v": np.ascontiguousarray(v)}
+    if f"{prefix}.bias" in sd:
+        params["b"] = sd[f"{prefix}.bias"]
+    return params
+
+
+def _dense(sd: StateDict, prefix: str) -> Dict[str, Array]:
+    params = {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T)}
+    if f"{prefix}.bias" in sd:
+        params["bias"] = sd[f"{prefix}.bias"]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Module converters: reference key strings in, nested flax-named dicts out
+# ---------------------------------------------------------------------------
+
+
+def _convert_resblock(sd: StateDict, prefix: str, act_all: bool = False
+                      ) -> Dict[str, Any]:
+    per_k = 4 if act_all else 3
+    params: Dict[str, Any] = {}
+    k = 0
+    while f"{prefix}.block.{k * per_k + 1}.conv.conv.weight" in sd:
+        base = k * per_k
+        params[f"block_{k}_pw"] = {
+            "conv": _norm_conv(sd, f"{prefix}.block.{base + 1}.conv.conv")
+        }
+        dw_off = 3 if act_all else 2
+        params[f"block_{k}_dw"] = {
+            "conv": _norm_conv(sd, f"{prefix}.block.{base + dw_off}.conv.conv")
+        }
+        k += 1
+    if f"{prefix}.res_scale_param" in sd:
+        params["res_scale_param"] = sd[f"{prefix}.res_scale_param"]
+    if f"{prefix}.shortcut.conv.conv.weight" in sd:
+        params["shortcut"] = {
+            "conv": _norm_conv(sd, f"{prefix}.shortcut.conv.conv")
+        }
+    return params
+
+
+def _convert_spec_block(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    params: Dict[str, Any] = {}
+    if f"{prefix}.spec.weight" in sd:  # learnable CausalSTFT basis
+        params["stft"] = {
+            "weight": np.transpose(sd[f"{prefix}.spec.weight"], (2, 1, 0))
+        }
+    if f"{prefix}.layer.conv.conv.weight" in sd:
+        params["proj"] = {"conv": _norm_conv(sd, f"{prefix}.layer.conv.conv")}
+    if f"{prefix}.scale_param" in sd:
+        params["scale_param"] = sd[f"{prefix}.scale_param"]
+    return params
+
+
+def _convert_encoder(sd: StateDict, prefix: str = "encoder") -> Dict[str, Any]:
+    enc: Dict[str, Any] = {}
+    enc["conv_pre"] = {"conv": _norm_conv(sd, f"{prefix}.conv_pre.1.conv.conv")}
+
+    i = 0
+    while f"{prefix}.downsample.{i}.2.conv.conv.weight" in sd:
+        j = 0
+        while f"{prefix}.blocks.{i}.{j}.block.1.conv.conv.weight" in sd:
+            enc[f"block_{i}_{j}"] = _convert_resblock(
+                sd, f"{prefix}.blocks.{i}.{j}"
+            )
+            j += 1
+        spec = _convert_spec_block(sd, f"{prefix}.spec_blocks.{i}")
+        if spec:
+            enc[f"spec_block_{i}"] = spec
+        enc[f"down_{i}_expand"] = {
+            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.2.conv.conv")
+        }
+        enc[f"down_{i}_dw"] = {
+            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.3.conv.conv")
+        }
+        b = 0
+        while f"{prefix}.film_layers.{i}.{b}.gamma_layer.weight" in sd:
+            enc[f"film_{i}_{b}"] = {
+                "gamma": _dense(sd, f"{prefix}.film_layers.{i}.{b}.gamma_layer"),
+                "beta": _dense(sd, f"{prefix}.film_layers.{i}.{b}.beta_layer"),
+            }
+            b += 1
+        i += 1
+
+    spec_post = _convert_spec_block(sd, f"{prefix}.spec_post")
+    if spec_post:
+        enc["spec_post"] = spec_post
+    enc["post_dw"] = {"conv": _norm_conv(sd, f"{prefix}.conv_post.1.conv.conv")}
+    post = _norm_conv(sd, f"{prefix}.conv_post.2.conv.conv")
+    post_b = post.pop("b", None)
+    enc["post_proj"] = {"conv": {"conv": post}}
+    if post_b is not None:
+        # L2Norm path: bias applied after normalization
+        # (reference modules/seanet.py:797-828)
+        enc["post_proj"]["b"] = post_b
+
+    # message MLP: first Linear -> msg_in, later Linears -> msg_hidden_{k}
+    msg_idx = sorted(
+        int(m.group(1))
+        for key in sd
+        if (m := re.match(rf"{re.escape(prefix)}\.msg_embedding\.(\d+)\.weight", key))
+    )
+    if msg_idx:
+        enc["msg_in"] = _dense(sd, f"{prefix}.msg_embedding.{msg_idx[0]}")
+        for k, n in enumerate(msg_idx[1:]):
+            enc[f"msg_hidden_{k}"] = _dense(sd, f"{prefix}.msg_embedding.{n}")
+    return enc
+
+
+def _convert_decoder(sd: StateDict, cfg: TrainConfig,
+                     prefix: str = "decoder") -> Dict[str, Any]:
+    n_scales = len(cfg.generator.strides)
+    n_res = cfg.generator.n_residual_dec
+    dec: Dict[str, Any] = {}
+    dec["conv_in"] = {"conv": _norm_conv(sd, f"{prefix}.model.0.conv.conv")}
+    dec["conv_in_dw"] = {"conv": _norm_conv(sd, f"{prefix}.model.1.conv.conv")}
+    idx = 2
+    for i in range(n_scales):
+        dec[f"up_{i}_dw"] = {
+            "convtr": _norm_conv(
+                sd, f"{prefix}.model.{idx + 2}.convtr.convtr", transposed=True
+            )
+        }
+        dec[f"up_{i}_proj"] = {
+            "conv": _norm_conv(sd, f"{prefix}.model.{idx + 3}.conv.conv")
+        }
+        for j in range(n_res):
+            dec[f"block_{i}_{j}"] = _convert_resblock(
+                sd, f"{prefix}.model.{idx + 4 + j}"
+            )
+        idx += 4 + n_res
+    dec["conv_out"] = {"conv": _norm_conv(sd, f"{prefix}.model.{idx + 2}.conv.conv")}
+    return dec
+
+
+def convert_generator(sd: StateDict, cfg: TrainConfig) -> Dict[str, Any]:
+    return {
+        "encoder": _convert_encoder(sd, "encoder"),
+        "decoder": _convert_decoder(sd, cfg, "decoder"),
+    }
+
+
+def convert_detector_like(sd: StateDict) -> Dict[str, Any]:
+    """Detector and Locator share the structure: encoder + plain
+    ConvTranspose1d head + 1x1 conv (reference model/detector.py:178-218,
+    model/locator.py:174-183)."""
+    return {
+        "encoder": _convert_encoder(sd, "encoder"),
+        "reverse_convolution": _plain_conv(
+            sd, "reverse_convolution", transposed=True
+        ),
+        "last_layer": _plain_conv(sd, "last_layer"),
+    }
+
+
+def convert_torch_checkpoint(path: Union[str, Path],
+                             cfg: Optional[TrainConfig] = None,
+                             validate: bool = True,
+                             models=None) -> Dict[str, Any]:
+    """Full conversion: a reference ``.pth`` -> the nested flax-named tree
+    ``{"generator", "detector", "locator"}`` of numpy arrays.
+
+    With ``validate=True`` the tree is shaped onto the port's modules built
+    from ``cfg`` (or ``models``, a ``WatermarkModels`` already built):
+    entries they lack (the CausalSTFT buffers a state dict may carry) are
+    dropped with a warning; a missing entry or a shape mismatch raises."""
+    if cfg is None:
+        cfg = TrainConfig()
+    sds = load_torch_state_dicts(path)
+    missing = {"generator", "detector", "locator"} - set(sds)
+    if missing:
+        raise ValueError(f"checkpoint {path} lacks model(s): {sorted(missing)}")
+    wm_params = {
+        "generator": convert_generator(sds["generator"], cfg),
+        "detector": convert_detector_like(sds["detector"]),
+        "locator": convert_detector_like(sds["locator"]),
+    }
+    if validate:
+        wm_params = _conform_tree(target_structure(cfg, models), wm_params)
+    return wm_params
+
+
+def target_structure(cfg: TrainConfig, models=None) -> Dict[str, Any]:
+    """The nested flax paths of the port's three networks, each leaf the
+    parameter's shape in the flax layout."""
+    from waveverify_torch.models import WatermarkModels
+    from waveverify_torch.weights import _to_flax_layout
+
+    if models is None:
+        models = WatermarkModels(cfg)
+    tree: Dict[str, Any] = {}
+    for net in ("generator", "detector", "locator"):
+        module = getattr(models, net)
+        node_net = tree.setdefault(net, {})
+        for full, p in module.named_parameters():
+            *path, name = full.split(".")
+            owner = module.get_submodule(".".join(path))
+            name, shaped = _to_flax_layout(owner, name,
+                                           np.empty(tuple(p.shape), np.float32))
+            node = node_net
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = tuple(shaped.shape)
+    return tree
+
+
+def _conform_tree(ref: Any, got: Any, path: str = "") -> Any:
+    """Shape the converted tree onto the target structure: extra entries
+    are dropped with a warning; missing entries or shape mismatches
+    raise."""
+    if isinstance(ref, dict):
+        got_keys = set(got) if isinstance(got, dict) else set()
+        missing = set(ref) - got_keys
+        if missing:
+            raise ValueError(
+                f"param tree mismatch at {path or '<root>'}: "
+                f"missing {sorted(missing)}")
+        for k in sorted(got_keys - set(ref)):
+            logger.warning("dropping unexpected converted entry %s/%s", path, k)
+        return {k: _conform_tree(ref[k], got[k], f"{path}/{k}") for k in ref}
+    got_shape = tuple(np.shape(got))
+    if tuple(ref) != got_shape:
+        raise ValueError(
+            f"shape mismatch at {path}: expected {tuple(ref)}, got {got_shape}")
+    return got

@@ -1,3 +1,3 @@
-"""Audio effects of the robustness sweep and the training bank, the
-training augmentations, and the host-side effect scheduler (part of the
-JAX package's effect catalog)."""
+"""Audio effects of the robustness sweep and the training bank (the JAX
+package's whole on-device catalog), the training augmentations, and the
+host-side effect scheduler."""

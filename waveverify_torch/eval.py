@@ -81,9 +81,17 @@ def run_sweep(
     ``serve_dtype="bfloat16"`` runs the network passes (generator, detector,
     locator) with bf16 activations while audio, effects and metrics stay
     f32. Run one dtype per :class:`WaveVerify`: each chain keeps its kernel
-    weights for one dtype. ``random_noise`` draws from one
-    ``torch.Generator`` on ``wv.device`` seeded with ``seed``."""
-    from waveverify_torch.effects.effects import AudioEffects, codec_available
+    weights for one dtype. ``effects`` may name any effect of the catalog;
+    a random one takes its draws (``effects.draw_effect``) from one CPU
+    ``torch.Generator`` seeded with ``seed``, moved to ``wv.device``, so
+    the card and the CPU sweep the same draws."""
+    from waveverify_torch.effects.effects import (
+        RANDOM_EFFECTS,
+        codec_available,
+        draw_effect,
+        effect_fn,
+        move_draws,
+    )
     from waveverify_torch.metrics import ber as ber_fn
     from waveverify_torch.metrics import miou as miou_fn
     from waveverify_torch.metrics import pesq as pesq_fn
@@ -121,9 +129,14 @@ def run_sweep(
     wm = residual + clean
     spliced = torch.where(mask_d > 0.5, wm, clean)
 
-    def apply_chain(x, m, chain, gen):
+    gen = torch.Generator().manual_seed(seed)
+
+    def apply_chain(x, m, chain):
         for name, params in chain:
-            x, m2 = getattr(AudioEffects, name)(x, m, gen, sample_rate=sr, **params)
+            kw = dict(params)
+            if name in RANDOM_EFFECTS:
+                kw.update(move_draws(draw_effect(name, params, gen, b, t), dev))
+            x, m2 = effect_fn(name)(x, m, None, sample_rate=sr, **kw)
             m = m if m2 is None else m2
         return x, m
 
@@ -141,10 +154,9 @@ def run_sweep(
                 results["_quality"]["sisnr_db"], results["_quality"]["stoi"],
                 results["_quality"]["pesq"])
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
     for chain in effects:
         tag = _effect_tag(chain)
-        x, m = apply_chain(spliced, mask_d, chain, gen)
+        x, m = apply_chain(spliced, mask_d, chain)
         det_l, loc_l = det(x), loc(x)
         bit_probs = torch.mean(torch.sigmoid(det_l), dim=1).cpu().numpy()
         sample_ber = ber_fn(det_l, bits_d, m, per_sample=True)
@@ -153,7 +165,7 @@ def run_sweep(
         # clean-audio confidence for FPR
         probs_clean = torch.mean(torch.sigmoid(det(clean)), dim=1).cpu().numpy()
         # full-clip protocol: watermark everywhere, no spliced-clean span
-        xf, mf = apply_chain(wm, torch.ones_like(mask_d), chain, gen)
+        xf, mf = apply_chain(wm, torch.ones_like(mask_d), chain)
         det_full = det(xf)
         bit_probs_full = torch.mean(torch.sigmoid(det_full), dim=1).cpu().numpy()
         sample_ber_full = ber_fn(det_full, bits_d, mf, per_sample=True)
@@ -195,8 +207,8 @@ def run_sweep(
                 }
                 logger.info("%-40s %s", tag, results[tag]["status"])
                 continue
-            attacked, _ = getattr(AudioEffects, fn_name)(
-                spliced, mask_d, None, sample_rate=sr, **params)
+            attacked, _ = effect_fn(fn_name)(spliced, mask_d, None,
+                                             sample_rate=sr, **params)
             det_l, loc_l = det(attacked), loc(attacked)
             bit_probs = torch.mean(torch.sigmoid(det_l), dim=1).cpu().numpy()
             decoded = (bit_probs > 0.5).astype(np.float32)
@@ -215,9 +227,14 @@ def run_sweep(
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="waveverify_torch robustness sweep")
-    ap.add_argument("--checkpoint", required=True,
+    ap.add_argument("--checkpoint", default=None,
                     help="a .npz written by save_weights_npz (its __config__ "
-                    "snapshot sets the architecture)")
+                    "snapshot sets the architecture), a reference .pth, or "
+                    "a checkpoint directory of the port's trainer; random "
+                    "init (with a warning) when absent")
+    ap.add_argument("--config", default=None,
+                    help="a YAML of the conf/base.yml schema; a checkpoint's "
+                    "snapshot overrides its model sections")
     ap.add_argument("--audio-folders", nargs="*", default=[],
                     help="folders of eval WAVs (synthetic clips if empty)")
     ap.add_argument("--batch", type=int, default=16)
@@ -240,12 +257,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from waveverify_torch.api.core import WaveVerify
-    from waveverify_torch.serve import set_conv_precision
     from waveverify_torch.train.data import AudioFolderDataset, SyntheticAudioDataset
 
-    wv = WaveVerify(args.checkpoint, device=args.device,
-                    serve_dtype=args.serve_dtype)
-    set_conv_precision(args.conv_precision)
+    wv = WaveVerify(checkpoint_path=args.checkpoint, config_path=args.config,
+                    precision=args.conv_precision, serve_dtype=args.serve_dtype,
+                    device=args.device)
     if args.audio_folders:
         ds = AudioFolderDataset(args.audio_folders, args.duration,
                                 wv.sample_rate, args.seed)

@@ -42,9 +42,10 @@ def filter_half_width(cutoff: float, zeros: int = 8) -> int:
     return int(math.ceil(zeros / (2 * max(cutoff, 1e-4))))
 
 
-def fir_filter(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+def fir_filter(x: torch.Tensor, kernel) -> torch.Tensor:
     """Zero-phase 'same' FIR filtering along the last axis: ``[..., T]`` ->
-    ``[..., T]``, ``kernel`` ``[K]`` with K odd."""
+    ``[..., T]``, ``kernel`` ``[K]`` (numpy or a tensor, K odd; an even K
+    pads one sample more on the left)."""
     shape = x.shape
     k = kernel.shape[0]
     w = torch.as_tensor(kernel, dtype=x.dtype, device=x.device).view(1, 1, k)

@@ -8,7 +8,8 @@
                                    package's save_weights_npz format
 
 A tag is written into a temporary directory and renamed into place. The
-JAX package's orbax checkpoints are not read.
+JAX package's orbax checkpoints are not read (reading them needs JAX):
+:func:`orbax_refusal` names the JAX package's route to an ``.npz``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ from waveverify_torch.config import TrainConfig, model_config_dict
 from waveverify_torch.models import WatermarkModels
 from waveverify_torch.train.state import WM_NETS, TrainState
 from waveverify_torch.weights import export_params, load_params, read_npz, write_npz
+
+
+def orbax_refusal(path: Union[str, Path]) -> str:
+    """The error for an orbax checkpoint directory, with the route from it
+    to a weights ``.npz`` the port reads."""
+    return (f"{path} is an orbax checkpoint of the JAX trainer, which the "
+            "port does not read (it needs JAX). Convert it where JAX runs: "
+            "params = waveverify_tpu.train.checkpoint.load_params(<ckpt root>, "
+            "<tag>), then waveverify_tpu.convert.save_weights_npz(params, "
+            "'weights.npz', config=<its TrainConfig>); the port reads that "
+            ".npz (WaveVerify, --init-weights).")
 
 
 def save_weights(models: WatermarkModels, path: Union[str, Path],
@@ -76,9 +88,7 @@ def load_checkpoint(ckpt_dir: Union[str, Path], tag: str,
     path = Path(ckpt_dir) / tag
     if not (path / "state.pt").exists():
         if (path / "state").is_dir():
-            raise ValueError(f"{path} is an orbax checkpoint of the JAX "
-                             "trainer; the PyTorch trainer resumes only its "
-                             "own (warm-start from a weights .npz instead)")
+            raise ValueError(orbax_refusal(path))
         raise FileNotFoundError(f"no checkpoint at {path}")
     device = next(state.models.parameters()).device
     state.load_state_dict(torch.load(path / "state.pt", map_location=device,

@@ -7,7 +7,8 @@ gives the same clips in both packages: :class:`SyntheticAudioDataset`
 (random crops of the audio files under some folders, mono at 16 kHz);
 :func:`prefetch_batches` makes (audio, message) batches ahead on a
 thread.
-Only WAV files are decoded so far; the native C++ WAV ingest is not
+Files are decoded by content (WAV, FLAC natively; other containers through
+``ffmpeg``) and resampled on the host; the native C++ WAV ingest is not
 ported.
 """
 
@@ -35,8 +36,10 @@ AUDIO_SUFFIXES = WAV_SUFFIXES + (".flac", ".ogg", ".mp3", ".aiff", ".aif")
 class AudioFolderDataset:
     """Random fixed-duration crops from audio folders: uniform random file
     choice, uniform random offset, short files zero-padded, mono 16 kHz.
-    Files are decoded by :func:`waveverify_torch.api.audio_io.load_audio`,
-    which reads WAV and raises on other formats."""
+    Files are decoded by :func:`waveverify_torch.api.audio_io.load_audio`
+    (by content, then ``scipy`` polyphase resampling to the target rate),
+    as the JAX package's ``decode_auto`` and ``resample_poly`` decode them,
+    so one ``RandomState(seed)`` gives the same crops in both packages."""
 
     def __init__(self, folders: Sequence[str], duration: float = 1.0,
                  sample_rate: int = DEFAULT_SAMPLE_RATE,
@@ -57,7 +60,7 @@ class AudioFolderDataset:
                 if f.suffix.lower() in AUDIO_SUFFIXES
             )
         if not self.files:
-            raise ValueError(f"no WAV files found under {list(folders)}")
+            raise ValueError(f"no audio files found under {list(folders)}")
 
     def __len__(self) -> int:
         return len(self.files)

@@ -45,7 +45,7 @@ from waveverify_torch.train.state import TrainState, create_train_state, in_msg_
 from waveverify_torch.train.step import train_step, val_step
 from waveverify_torch.train.watermarking import (
     draw,
-    eval_noise_effects,
+    eval_random_effects,
     forward_audio_sample,
 )
 
@@ -423,7 +423,7 @@ def _validate_and_save(state: TrainState, cfg: TrainConfig,
             val_rng, cfg.val_batch_size, cfg.generator.msg_dimension)).to(device)
         vdraws = draw(step_generator(cfg.seed, 1_000_000 + step),
                       cfg.val_batch_size, vaudio.shape[1],
-                      len(eval_noise_effects(eval_effects)),
+                      eval_random_effects(eval_effects),
                       cfg.generator.sample_rate, cfg.window_duration,
                       gp=False).to(device)
         vmetrics = {k: float(v) for k, v in val_step(
@@ -570,7 +570,7 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
                 idx = np.full(cfg.batch_size, identity, np.int32)
                 selections = [bank.specs[identity]] * cfg.batch_size
             draws = draw(step_generator(cfg.seed, step), cfg.batch_size,
-                         audio_np.shape[1], len(bank.noise_branches), sr,
+                         audio_np.shape[1], bank.random_specs, sr,
                          cfg.window_duration, jitter_hop).to(device)
             audio = torch.from_numpy(audio_np).to(device)
             msg = torch.from_numpy(msg_np).to(device)

@@ -28,6 +28,10 @@ from waveverify_torch.effects.effects import (
     DEFAULT_EVAL_EFFECTS,
     AudioEffects,
     EffectBank,
+    draw_effect,
+    effect_fn,
+    move_draws,
+    random_indices,
 )
 from waveverify_torch.metrics import ber, miou
 from waveverify_torch.models import WatermarkModels
@@ -40,11 +44,12 @@ class Draws:
     loc_scores, loc_probs, loc_offset ``[B, S]``: the localization
     augmentation's segment scores, action draws and donor offsets;
     seq_u, seq_shift, seq_perm: the sequence augmentation's choice, shift
-    and segment permutation; noise ``[N, B, T]``: unit noise for each noise
-    branch of the bank (training) or each noise effect of the sweep
-    (validation); jitter, jitter_clean ``[B]``: the sub-hop rolls (None
-    when off); gp_alpha ``[B]``: the gradient penalty's interpolation
-    weights (None in validation)."""
+    and segment permutation; fx: the draws of each random branch of the
+    bank (training) or each random effect of the sweep (validation), one
+    dict of whole-batch draws each (``effects.draw_effect``); jitter,
+    jitter_clean ``[B]``: the sub-hop rolls (None when off); gp_alpha
+    ``[B]``: the gradient penalty's interpolation weights (None in
+    validation)."""
 
     loc_scores: torch.Tensor
     loc_probs: torch.Tensor
@@ -52,32 +57,35 @@ class Draws:
     seq_u: float
     seq_shift: int
     seq_perm: torch.Tensor
-    noise: torch.Tensor
+    fx: List[Dict[str, Any]]
     jitter: Optional[torch.Tensor] = None
     jitter_clean: Optional[torch.Tensor] = None
     gp_alpha: Optional[torch.Tensor] = None
 
     def to(self, device: torch.device) -> "Draws":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            f.name: move_draws(getattr(self, f.name), device)
+            for f in dataclasses.fields(self)})
 
 
-def draw(generator: torch.Generator, b: int, t: int, n_noise: int,
+def draw(generator: torch.Generator, b: int, t: int,
+         random_effects: Sequence[Tuple[str, Dict]] = (),
          sample_rate: int = 16000, window_duration: float = 0.1,
          jitter_hop: int = 0, gp: bool = True) -> Draws:
-    """Every draw of a step from a CPU ``generator``, on the CPU."""
+    """Every draw of a step from a CPU ``generator``, on the CPU;
+    ``random_effects`` lists the (name, params) whose draws ``fx`` holds
+    (``EffectBank.random_specs``, or the sweep's random effects)."""
     scores, probs, offset = draw_localization(generator, b, t, sample_rate,
                                               window_duration)
     u, shift, perm = draw_sequence(generator, t, sample_rate)
-    noise = torch.randn((n_noise, b, t), generator=generator)
+    fx = [draw_effect(name, params, generator, b, t)
+          for name, params in random_effects]
     jitter = jitter_clean = None
     if jitter_hop > 0:
         jitter = torch.randint(0, jitter_hop, (b,), generator=generator)
         jitter_clean = torch.randint(0, jitter_hop, (b,), generator=generator)
     alpha = torch.rand((b,), generator=generator) if gp else None
-    return Draws(scores, probs, offset, u, shift, perm, noise, jitter,
+    return Draws(scores, probs, offset, u, shift, perm, fx, jitter,
                  jitter_clean, alpha)
 
 
@@ -123,7 +131,7 @@ def forward_train(
         augmented, updated_original, mask = sequence_augmentation(
             augmented, updated_original, mask, draws.seq_u, draws.seq_shift,
             draws.seq_perm, sample_rate)
-        fx_audio, mask = bank.apply(augmented, mask, effect_idx, draws.noise)
+        fx_audio, mask = bank.apply(augmented, mask, effect_idx, draws.fx)
         if jitter_hop > 0:
             fx_audio = _sub_hop_roll(fx_audio, draws.jitter)
             mask = _sub_hop_roll(mask, draws.jitter)
@@ -166,10 +174,11 @@ def forward_audio_sample(models: WatermarkModels, audio: torch.Tensor,
     return residual, residual + audio
 
 
-def eval_noise_effects(eval_effects: Sequence[Tuple[str, Dict]]) -> List[int]:
-    """Indices of the sweep's effects that take drawn noise."""
-    return [i for i, (name, _) in enumerate(eval_effects)
-            if name == "random_noise"]
+def eval_random_effects(eval_effects: Sequence[Tuple[str, Dict]]
+                        ) -> List[Tuple[str, Dict]]:
+    """The sweep's effects that take drawn randomness, in order: what
+    ``draws.fx`` holds in validation."""
+    return [eval_effects[i] for i in random_indices(eval_effects)]
 
 
 @torch.no_grad()
@@ -180,8 +189,8 @@ def forward_valid(
 ) -> Dict[str, Any]:
     """Validation: the watermarked audio goes through the localization and
     sequence augmentations (so MIoU's ground truth is a spliced mask), then
-    each sweep effect; detect and locate each. ``draws.noise`` holds one row
-    per effect of :func:`eval_noise_effects`. Returns
+    each sweep effect; detect and locate each. ``draws.fx`` holds the draws
+    of each effect of :func:`eval_random_effects`. Returns
     ``{"residual", "watermarked", "effects": {name: {ber, miou,
     detector_logits, locator_logits, mask}}}``."""
     if eval_effects is None:
@@ -194,14 +203,14 @@ def forward_valid(
     augmented, updated_original, gt_mask = sequence_augmentation(
         augmented, updated_original, gt_mask, draws.seq_u, draws.seq_shift,
         draws.seq_perm, sample_rate)
-    noisy = eval_noise_effects(eval_effects)
+    random = random_indices(eval_effects)
     results: Dict[str, Any] = {}
     for i, (name, params) in enumerate(eval_effects):
         kw = dict(params)
-        if i in noisy:
-            kw["noise"] = draws.noise[noisy.index(i)]
-        fx, mask = getattr(AudioEffects, name)(augmented, gt_mask, None,
-                                               sample_rate=sample_rate, **kw)
+        if i in random:
+            kw.update(draws.fx[random.index(i)])
+        fx, mask = effect_fn(name)(augmented, gt_mask, None,
+                                   sample_rate=sample_rate, **kw)
         mask = gt_mask if mask is None else mask
         det = models.apply_detector(fx)
         loc = models.apply_locator(fx)
