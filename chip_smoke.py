@@ -37,7 +37,7 @@ Phases, each fatal on failure:
      under autograd; one step at batch 2 on the card against the same step
      of the port on the CPU (losses, gradient norms, every parameter's
      gradient, parameters after the step), its chain launches asserted
-     (2 x 20 with remat); the training CLI's entry point for 20 steps at
+     (2 x 20 with remat); the training CLI's entry point for 10 steps at
      batch 32 x 1 s with one validation, its launches asserted, the losses
      finite, every network's gradient norm positive, each network moved
      beyond weight decay's share, and its weights serving embed+detect
@@ -68,8 +68,21 @@ Phases, each fatal on failure:
      catalog effect as a row on r5 at the CLI's defaults, and card vs CPU
      at batch 2 x 1 s with the same draws; (v) the 20-branch bank alone,
      card vs CPU, forward and backward; one full-width step at batch 2 on
-     two new random branches against the CPU; the training CLI for 10
-     steps with an effects YAML of all 20 effects.
+     two new random branches against the CPU; the training CLI for 6
+     steps with an effects YAML of all 20 effects;
+  9. the trainer's remaining options and the ops utilities (each fatal on
+     failure): (i) one TrainConfig() step at batch 2 as the split step
+     (--split-disc) against the monolithic step on the card, from one state
+     and the same draws, and both timed at batch 32; (ii) the training
+     CLI for 8 steps with --steps-per-dispatch 4, its log lines, launches
+     and ms per step and host share against K = 1 (phase 6's CLI); (iii)
+     the 20-branch bank under --effect-dispatch scan card vs CPU, forward
+     and backward, its ms against stack, and the CLI for 4 steps under
+     scan with the 20-effect YAML; (iv) the CLI for 6 steps with
+     --profile-steps 2:4 --tensorboard --debug-nans: the trace names the
+     chain kernel, the TensorBoard events (or, where it does not import,
+     the trainer's warning); (v) STDCT, MDCT, PQMF and adjust_audio_length
+     at batch 64 x 1 s card vs CPU, and the inverses' round trips.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -578,7 +591,7 @@ TRAIN_BATCH = 32
 # audio), locator
 TRAIN_CHAINS = GEN_ENC + GEN_DEC + DET_ENC + LOC_ENC
 TRAIN_LR = 1e-4  # conf/base.yml AdamW.lr
-CLI_STEPS = 20
+CLI_STEPS = 10
 TRAIN_NETS = ("generator", "detector", "locator", "discriminator")
 # ResblockChainFn under checkpoint against the plain version under
 # autograd: both differentiate the plain version at the same inputs, so only
@@ -1422,7 +1435,7 @@ CATALOG_SWEEP_LIMITS = {"confidence": 1e-3, "miou": 1e-3, "ber": 1 / 32,
 # sum(out * w) with respect to the audio
 BANK_TOL = 2e-6
 BANK_GRAD_TOL = 1e-5
-CATALOG_CLI_STEPS = 10
+CATALOG_CLI_STEPS = 6
 # one sweep row per on-device catalog effect at the JAX defaults (encodec as
 # its proxy; the host codecs are the sweep's codec rows)
 CATALOG_EFFECTS = ["identity", "highpass_filter", "lowpass_filter", "bandpass_filter",
@@ -1782,6 +1795,416 @@ def check_catalog_cli(torch, rc, report):
     if launches != expected:
         raise AssertionError(f"catalog CLI: {launches} launches, expected {expected}")
     return launches
+
+
+# -- phase 9: the trainer's remaining options and the ops utilities ------------
+
+SPLIT_LOSS_TOL = 1e-5
+DISPATCH_K = 4
+DISPATCH_STEPS = 8
+SCAN_CLI_STEPS = 4
+PROFILE_CLI_STEPS = 6
+PROFILE_RANGE = (2, 4)
+TRANSFORM_TOL = 1e-5
+# a short validation for phase 9's CLI runs (the launches do not depend on it)
+SHORT_VAL = ["--val-batch-size", "4", "--val-duration", "1"]
+
+
+def _cli_run(torch, rc, argv, ckpt_dir):
+    """``python -m waveverify_torch.train``'s entry point with ``argv`` into
+    ``ckpt_dir``: (log lines, launches, wall seconds)."""
+    from waveverify_torch.train.__main__ import main as train_main
+
+    torch.cuda.synchronize()
+    rc.resblock_chain.launches = 0
+    t0 = time.perf_counter()
+    train_main(argv + ["--ckpt-dir", str(ckpt_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = _log_lines(Path(ckpt_dir) / "train_log.jsonl")
+    return lines, rc.resblock_chain.launches, wall
+
+
+def _finite(lines, what):
+    import numpy as np
+
+    for r in lines:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad} at step {r['step']}")
+
+
+def _val_launches(rc, rows):
+    """One validation's launches: the generator, then the detector and the
+    locator once per sweep row."""
+    emb, det, loc = _per_call(rc)
+    return emb + rows * (det + loc)
+
+
+def _split_or_monolithic(torch, state, cfg, bank, batch, split):
+    """One train step on the card from host inputs ``batch``: the split
+    step (disc_step, then train_step(update_disc=False)) or the
+    monolithic one."""
+    from waveverify_torch.train.step import disc_step, train_step
+
+    audio_np, msg_np, idx, d = batch
+    audio, msg = torch.tensor(audio_np, device="cuda"), torch.tensor(msg_np, device="cuda")
+    d = d.to("cuda")
+    if not split:
+        return train_step(state, cfg, bank, audio, msg, idx, d)
+    dm = disc_step(state, cfg, audio, msg, d)
+    return {**train_step(state, cfg, bank, audio, msg, idx, d, update_disc=False), **dm}
+
+
+def check_split_step(torch, rc, report):
+    """Phase 9.1: one TrainConfig() step at batch 2 on the card as the split
+    step (disc_step, then train_step(update_disc=False)) against the
+    monolithic step, from one seed-0 state each and the same draws: the
+    losses within SPLIT_LOSS_TOL relative, every parameter within 2 lr
+    (plus f32 rounding), the launches (the monolithic step's, plus the
+    split's no-grad generator forward). Then ms per step of each at batch
+    32 (CUDA events, the two in turns, median of 3 after one warm-up
+    each). Returns the launches of both."""
+    import dataclasses
+    import statistics
+
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.train.state import create_train_state
+
+    cfg = dataclasses.replace(TrainConfig(), batch_size=2)
+    bank = EffectBank.default_train_bank()
+    batch = train_batch(cfg, bank, 2, 0)
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    expected = {"monolithic": per_step, "split": per_step + _per_call(rc)[0]}
+    states, metrics, launches = {}, {}, {}
+    for mode in ("monolithic", "split"):
+        st = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                torch.device("cuda"))
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        m = _split_or_monolithic(torch, st, cfg, bank, batch, mode == "split")
+        torch.cuda.synchronize()
+        launches[mode] = rc.resblock_chain.launches
+        states[mode], metrics[mode] = st, {k: v.cpu() for k, v in m.items()}
+    mono, split = metrics["monolithic"], metrics["split"]
+    rel = {k: abs(float(split[k]) - float(v)) / max(abs(float(v)), 1e-12)
+           for k, v in mono.items() if v.dim() == 0}
+    ref = dict(states["monolithic"].models.named_parameters())
+    param_dev, param_limit = {}, {}
+    for net in TRAIN_NETS:
+        params = [(n, p) for n, p in states["split"].models.named_parameters()
+                  if n.startswith(net + ".")]
+        param_dev[net] = max(float((p - ref[n]).detach().abs().max())
+                             for n, p in params)
+        p_max = max(float(ref[n].abs().max()) for n, _ in params)
+        param_limit[net] = 2 * TRAIN_LR + 2 * torch.finfo(torch.float32).eps * p_max
+    losses = {k: v for k, v in rel.items() if "loss" in k}
+    del states
+    cfg = TrainConfig()
+    timed = {mode: create_train_state(cfg, torch.Generator().manual_seed(0),
+                                      torch.device("cuda"))
+             for mode in ("monolithic", "split")}
+    ms = {mode: [] for mode in timed}
+    for i in range(4):
+        batch = train_batch(cfg, bank, TRAIN_BATCH, i)
+        for mode in (("monolithic", "split") if i % 2 else ("split", "monolithic")):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            _split_or_monolithic(torch, timed[mode], cfg, bank, batch, mode == "split")
+            e1.record()
+            torch.cuda.synchronize()
+            if i:
+                ms[mode].append(e0.elapsed_time(e1))
+    del timed
+    torch.cuda.empty_cache()
+    med = {mode: statistics.median(v) for mode, v in ms.items()}
+    report["split_step"] = {"rel_dev": rel, "param_dev": param_dev,
+                            "launches": launches, "expected_launches": expected,
+                            "ms_per_step_batch32": med, "ms": ms}
+    print(f"9.1 split step vs monolithic on the card (TrainConfig(), batch 2 x "
+          f"{CLIP}): launches {launches} (expected {expected}); losses rel dev max "
+          f"{max(losses.values()):.2e} (limit {SPLIT_LOSS_TOL:.0e}); grad norms rel dev "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items() if k.startswith("grad_norm/"))
+          + "; max |param dev| " + ", ".join(f"{k} {v:.2e}" for k, v in param_dev.items())
+          + f" (2 lr = {2 * TRAIN_LR:.0e}); ms per step at batch {TRAIN_BATCH}: "
+          f"monolithic {med['monolithic']:.3f}, split {med['split']:.3f} (median of 3, "
+          f"in turns) [{card_line()}]")
+    if launches != expected:
+        raise AssertionError(f"split step launches {launches}, expected {expected}")
+    bad = {k: v for k, v in losses.items() if not v <= SPLIT_LOSS_TOL}
+    if bad:
+        raise AssertionError(f"split step losses vs monolithic: {bad}")
+    for net, v in param_dev.items():
+        if not v <= param_limit[net]:
+            raise AssertionError(f"split step {net}: param dev {v} > {param_limit[net]}")
+    return launches["monolithic"] + launches["split"]
+
+
+def _per_step_times(lines, first):
+    """Median ms per step and median host share per step over the log
+    lines from step ``first`` on (``step_time`` and ``time/host_s``)."""
+    import numpy as np
+
+    rows = [r for r in lines if "loss" in r and r["step"] >= first]
+    return (float(np.median([r["step_time"] for r in rows])) * 1e3,
+            float(np.median([r["time/host_s"] / r["step_time"] for r in rows])))
+
+
+def check_dispatch_cli(torch, rc, report, k1_log):
+    """Phase 9.2: the CLI at TrainConfig() (batch 32 x 1 s) for
+    DISPATCH_STEPS steps with --steps-per-dispatch DISPATCH_K: log lines at
+    the dispatches' last steps (3 and 7), every value finite, the launches
+    (DISPATCH_STEPS x 40 plus one validation); ms per step and the host's
+    share per step against K = 1 (phase 6's CLI log, ``k1_log``: the same
+    CLI and config). Returns the launches."""
+    import tempfile
+
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    expected = DISPATCH_STEPS * per_step + _val_launches(rc, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, launches, wall = _cli_run(torch, rc, [
+            "--max-steps", str(DISPATCH_STEPS), "--steps-per-dispatch",
+            str(DISPATCH_K), "--log-every", "1", "--no-samples"] + SHORT_VAL, tmp)
+    steps = [r["step"] for r in lines if "loss" in r]
+    k4_ms, k4_host = _per_step_times(lines, DISPATCH_K)
+    k1_ms, k1_host = _per_step_times(_log_lines(k1_log), 3)
+    report["dispatch_cli"] = {"log_steps": steps, "launches": launches,
+                              "expected_launches": expected, "wall_s": wall,
+                              "k4": {"ms_per_step": k4_ms, "host_share": k4_host},
+                              "k1": {"ms_per_step": k1_ms, "host_share": k1_host}}
+    print(f"9.2 train CLI --steps-per-dispatch {DISPATCH_K} at TrainConfig() (batch "
+          f"{TRAIN_BATCH} x 1 s), {DISPATCH_STEPS} steps + 1 validation in {wall:.1f} s: "
+          f"log lines at steps {steps}, {launches} launches (expected {expected}: "
+          f"{DISPATCH_STEPS * per_step} in the steps); ms per step K = {DISPATCH_K} "
+          f"{k4_ms:.3f} (the second dispatch), host share {k4_host:.4f}; K = 1 "
+          f"{k1_ms:.3f} (phase 6's CLI, median of steps 3-{CLI_STEPS - 1}), host share "
+          f"{k1_host:.4f} [{card_line()}]")
+    if steps != [DISPATCH_K - 1, 2 * DISPATCH_K - 1]:
+        raise AssertionError(f"dispatch CLI logged steps {steps}")
+    _finite(lines, "dispatch CLI")
+    if launches != expected:
+        raise AssertionError(f"dispatch CLI: {launches} launches, expected {expected}")
+    return launches
+
+
+def check_scan_bank(torch, report):
+    """Phase 9.3a: the 20-branch bank under "scan" alone, forward and
+    backward, at [20, 16000] with each row on its own branch, card against
+    CPU with the same per-sample draws (each random branch drawn at batch
+    1): outputs within BANK_TOL, masks equal, the gradient of sum(out * w)
+    within BANK_GRAD_TOL; then the bank's ms under "scan" and "stack" at
+    batch 32 on the scheduler's branches (CUDA events, draws on the card
+    beforehand)."""
+    import numpy as np
+
+    from tests.catalog import CATALOG20
+    from waveverify_torch.effects.effects import EffectBank, move_draws
+    from waveverify_torch.effects.scheduler import EffectScheduler
+    from waveverify_torch.train.data import SyntheticAudioDataset
+    from waveverify_torch.train.watermarking import draw
+
+    n = len(CATALOG20)
+    banks = {mode: EffectBank(CATALOG20, dispatch=mode) for mode in ("stack", "scan")}
+    x = torch.tensor(SyntheticAudioDataset(1.0, CLIP, 5).batch(n))
+    rng = np.random.RandomState(12)
+    mask = np.ones((n, CLIP), np.float32)
+    for i, s in enumerate(rng.randint(0, CLIP - 3200, n)):
+        mask[i, s:s + 3200] = 0.0
+    mask = torch.tensor(mask)
+    w = torch.tensor(rng.randn(n, CLIP).astype(np.float32))
+    idx = np.arange(n)[::-1].copy()
+    fx = draw(torch.Generator().manual_seed(13), n, CLIP,
+              banks["scan"].draw_specs(idx), per_sample=True).fx
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        a = x.detach().to(dev).clone().requires_grad_(True)
+        y, m = banks["scan"].apply(a, mask.to(dev), idx, move_draws(fx, dev))
+        (y * w.to(dev)).sum().backward()
+        outs[dev] = (y.detach().cpu(), m.cpu(), a.grad.cpu())
+    (y0, m0, g0), (y1, m1, g1) = outs["cpu"], outs["cuda"]
+    dev_out, dev_grad = float((y1 - y0).abs().max()), float((g1 - g0).abs().max())
+    masks_equal = bool(torch.equal(m0, m1))
+    # the bank's time per call at the training batch
+    audio = torch.tensor(SyntheticAudioDataset(1.0, CLIP, 6).batch(TRAIN_BATCH),
+                         device="cuda")
+    tmask = torch.ones_like(audio)
+    sel, _ = EffectScheduler(rng=np.random.RandomState(14)).select_bank_indices(
+        TRAIN_BATCH, banks["stack"].specs)
+    bank_ms = {}
+    for mode, bank in banks.items():
+        d = move_draws(draw(torch.Generator().manual_seed(15), TRAIN_BATCH, CLIP,
+                            bank.draw_specs(sel), per_sample=mode == "scan").fx, "cuda")
+        bank_ms[mode] = cuda_time(torch, lambda: bank.apply(audio, tmask, sel, d), 10)
+    report["scan_bank"] = {"max_out_dev": dev_out, "max_grad_dev": dev_grad,
+                           "masks_equal": masks_equal, "bank_ms_batch32": bank_ms,
+                           "branches": sorted(set(int(i) for i in sel))}
+    print(f"9.3a 20-branch bank under scan at [{n}, {CLIP}], card vs CPU: outputs max "
+          f"|dev| {dev_out:.2e} (limit {BANK_TOL:.0e}), masks equal {masks_equal}, "
+          f"gradient max |dev| {dev_grad:.2e} (limit {BANK_GRAD_TOL:.0e}); the bank at "
+          f"batch {TRAIN_BATCH} on {len(set(sel))} scheduler branches: scan "
+          f"{bank_ms['scan']:.3f} ms, stack {bank_ms['stack']:.3f} ms [{card_line()}]")
+    if not (dev_out <= BANK_TOL and dev_grad <= BANK_GRAD_TOL and masks_equal):
+        raise AssertionError(f"scan bank card vs CPU: out {dev_out}, grad {dev_grad}, "
+                             f"masks {masks_equal}")
+
+
+def check_scan_cli(torch, rc, report):
+    """Phase 9.3b: the CLI at TrainConfig() for SCAN_CLI_STEPS steps with
+    --effect-dispatch scan and the 20-effect YAML: finite values, the
+    launches, ms per step. Returns the launches."""
+    import tempfile
+
+    from tests.catalog import CATALOG20, catalog_yaml
+
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    expected = SCAN_CLI_STEPS * per_step + _val_launches(rc, len(CATALOG20))
+    with tempfile.TemporaryDirectory() as tmp:
+        fx = Path(tmp) / "catalog.yml"
+        fx.write_text(catalog_yaml())
+        lines, launches, wall = _cli_run(torch, rc, [
+            "--max-steps", str(SCAN_CLI_STEPS), "--effect-dispatch", "scan",
+            "--effects-config", str(fx), "--log-every", "1", "--no-samples"]
+            + SHORT_VAL, Path(tmp) / "run")
+    ms, host = _per_step_times(lines, 2)
+    report["scan_cli"] = {"launches": launches, "expected_launches": expected,
+                          "wall_s": wall, "ms_per_step": ms, "host_share": host}
+    print(f"9.3b train CLI --effect-dispatch scan with the 20-effect YAML at "
+          f"TrainConfig(), {SCAN_CLI_STEPS} steps + 1 validation in {wall:.1f} s: "
+          f"{launches} launches (expected {expected}); {ms:.3f} ms per step (median "
+          f"of steps 2-{SCAN_CLI_STEPS - 1}), host share {host:.4f} [{card_line()}]")
+    _finite(lines, "scan CLI")
+    if len([r for r in lines if "loss" in r]) != SCAN_CLI_STEPS or launches != expected:
+        raise AssertionError(f"scan CLI: {launches} launches, expected {expected}")
+    return launches
+
+
+def check_profile_cli(torch, rc, report, k1_log):
+    """Phase 9.4: the CLI at TrainConfig() for PROFILE_CLI_STEPS steps with
+    --profile-steps 2:4 --tensorboard DIR --debug-nans: the run ends
+    without raising; the trace of steps 2-3 exists and names the chain
+    kernel among its CUDA kernel events; where TensorBoard imports, its
+    events file holds ``loss`` at every step, else (the JAX behaviour) the
+    trainer warned and wrote its JSONL; ms per step beside phase 6's CLI.
+    Returns the launches."""
+    import logging
+    import tempfile
+
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    expected = PROFILE_CLI_STEPS * per_step + _val_launches(rc, 8)
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+
+        tb = "imports"
+    except Exception as exc:  # the card machine may lack the package
+        tb = f"does not import ({exc})"
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("waveverify_torch.train.loop")
+    log.addHandler(handler)
+    a, b = PROFILE_RANGE
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            lines, launches, wall = _cli_run(torch, rc, [
+                "--max-steps", str(PROFILE_CLI_STEPS), "--profile-steps", f"{a}:{b}",
+                "--tensorboard", str(Path(tmp) / "tb"), "--debug-nans",
+                "--log-every", "1", "--no-samples"] + SHORT_VAL, Path(tmp) / "run")
+            trace = Path(tmp) / "run" / "profile" / f"steps_{a}_{b}.json"
+            events = json.loads(trace.read_text())["traceEvents"] if trace.exists() else []
+            trace_mib = trace.stat().st_size / 2**20 if trace.exists() else 0.0
+            tb_scalars = None
+            if tb == "imports":
+                from tensorboard.backend.event_processing.event_accumulator import (
+                    EventAccumulator,
+                )
+
+                acc = EventAccumulator(str(Path(tmp) / "tb"))
+                acc.Reload()
+                tb_scalars = [e.step for e in acc.Scalars("loss")]
+    finally:
+        log.removeHandler(handler)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    chain = [e for e in kernels if "resblock_chain" in e.get("name", "")]
+    warned = [r.getMessage() for r in records if "TensorBoard unavailable" in r.getMessage()]
+    # the step after the profile's first carries the trace's export
+    ms, _ = _per_step_times(lines, b + 1)
+    k1_ms, _ = _per_step_times(_log_lines(k1_log), 3)
+    steps = [r["step"] for r in lines if "loss" in r]
+    report["profile_cli"] = {"launches": launches, "expected_launches": expected,
+                             "wall_s": wall, "trace_mib": trace_mib,
+                             "kernel_events": len(kernels), "chain_events": len(chain),
+                             "tensorboard": tb, "tb_loss_steps": tb_scalars,
+                             "tb_warning": warned, "ms_per_step_after_profile": ms,
+                             "phase6_ms_per_step": k1_ms}
+    print(f"9.4 train CLI --profile-steps {a}:{b} --tensorboard --debug-nans at "
+          f"TrainConfig(), {len(steps)} steps + 1 validation in {wall:.1f} s, no raise: "
+          f"{launches} launches (expected {expected}); trace {trace_mib:.1f} MiB with "
+          f"{len(kernels)} CUDA kernel events, {len(chain)} of the chain kernel; "
+          f"TensorBoard {tb}: " + (f"events file holds loss at steps {tb_scalars}"
+                                   if tb == "imports" else f"warning {warned}, JSONL "
+                                   f"steps {steps}")
+          + f"; {ms:.3f} ms per step after the profile (steps {b + 1}-"
+          f"{PROFILE_CLI_STEPS - 1}, anomaly mode on) against phase 6's {k1_ms:.3f} "
+          f"[{card_line()}]")
+    _finite(lines, "profile CLI")
+    if steps != list(range(PROFILE_CLI_STEPS)) or launches != expected:
+        raise AssertionError(f"profile CLI: steps {steps}, launches {launches}, "
+                             f"expected {expected}")
+    if not chain:
+        raise AssertionError(f"profile CLI: no chain kernel in the trace {trace}")
+    if tb == "imports" and tb_scalars != steps:
+        raise AssertionError(f"profile CLI: TensorBoard loss steps {tb_scalars}")
+    if tb != "imports" and not warned:
+        raise AssertionError("profile CLI: no TensorBoard warning")
+    return launches
+
+
+def check_transforms(torch, report):
+    """Phase 9.5: STDCT, MDCT, PQMF (each with its inverse) and
+    adjust_audio_length in every mode at batch 64 x 1 s, card against CPU
+    within TRANSFORM_TOL (f32, TF32 off), and each inverse's round-trip
+    error on the card away from the edges."""
+    import numpy as np
+
+    from waveverify_torch.ops import MDCT, PQMF, STDCT
+    from waveverify_torch.ops.audio_processor import adjust_audio_length
+    from waveverify_torch.train.data import SyntheticAudioDataset
+
+    x = torch.tensor(SyntheticAudioDataset(1.0, CLIP, 7).batch(BATCH))
+    stdct = STDCT(512, 128, np.hanning(512).astype(np.float32))
+    mdct, pqmf = MDCT(320), PQMF(4)
+    fns = {
+        "stdct": stdct, "stdct_inverse": lambda v: stdct.inverse(stdct(v)),
+        "mdct": mdct, "mdct_inverse": lambda v: mdct.inverse(mdct(v)),
+        "pqmf_analysis": pqmf.analysis,
+        "pqmf_synthesis": lambda v: pqmf.synthesis(pqmf.analysis(v)),
+    }
+    for mode in ("pad_truncate", "stretch", "nearest"):
+        fns[f"adjust_{mode}"] = lambda v, mode=mode: adjust_audio_length(v, 24000, mode)
+    dev, roundtrip = {}, {}
+    for name, fn in fns.items():
+        ref = fn(x)
+        out = fn(x.cuda()).cpu()
+        if out.shape != ref.shape:
+            raise AssertionError(f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+        dev[name] = float((out - ref).abs().max())
+    xc = x.cuda()
+    roundtrip["stdct"] = float((stdct.inverse(stdct(xc)) - xc)[:, 512:-512].abs().max())
+    roundtrip["mdct"] = float((mdct.inverse(mdct(xc)) - xc)[:, 320:-320].abs().max())
+    # analysis and synthesis are both centred on their filters: no delay
+    y = pqmf.synthesis(pqmf.analysis(xc))
+    roundtrip["pqmf"] = float((y - xc)[:, 256:-256].abs().max())
+    report["transforms"] = {"card_vs_cpu": dev, "roundtrip_max_abs_err": roundtrip,
+                            "signal_peak": float(x.abs().max())}
+    print(f"9.5 transforms at batch {BATCH} x {CLIP}, card vs CPU max |dev|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in dev.items())
+          + f" (limit {TRANSFORM_TOL:.0e}); round trip on the card max |err| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in roundtrip.items())
+          + f" (signal peak {float(x.abs().max()):.3f}) [{card_line()}]")
+    bad = {k: v for k, v in dev.items() if not v <= TRANSFORM_TOL}
+    if bad:
+        raise AssertionError(f"transforms card vs CPU: {bad}")
 
 
 def main() -> int:
@@ -2171,6 +2594,14 @@ def main() -> int:
         audio=(np.random.RandomState(3).randn(2, CLIP) * 0.1).astype(np.float32),
         spread=True)
     path_launches["catalog_cli"] = check_catalog_cli(torch, rc, report)
+    # 9. the trainer's remaining options and the ops utilities
+    k1_log = Path(cli_dir) / "train_log.jsonl"
+    path_launches["split_step"] = check_split_step(torch, rc, report)
+    path_launches["dispatch_cli"] = check_dispatch_cli(torch, rc, report, k1_log)
+    check_scan_bank(torch, report)
+    path_launches["scan_cli"] = check_scan_cli(torch, rc, report)
+    path_launches["profile_cli"] = check_profile_cli(torch, rc, report, k1_log)
+    check_transforms(torch, report)
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 

@@ -111,6 +111,29 @@ for name in ("random_equalization", "echo", "white_noise", "pink_noise",
           if name in RANDOM_EFFECTS else {})
     y, _ = getattr(AudioEffects, name)(clip, None, None, **kw)
     assert y.shape == clip.shape and bool(torch.isfinite(y).all()), name
+# the trainer's other options (split step, K-step dispatch, the scan bank)
+# and the ops utilities
+from waveverify_torch.ops import MDCT, PQMF, STDCT, design_prototype_filter
+from waveverify_torch.ops.audio_processor import AudioProcessor
+from waveverify_torch.train.loop import Tracker, check_finite, dispatch_inputs
+from waveverify_torch.train.step import disc_step, train_steps
+spec = STDCT(64, 32, np.hanning(64))(clip)
+assert spec.shape == (2, 30, 64) and STDCT(64, 32).inverse(spec).shape == (2, 960)
+assert MDCT(32).inverse(MDCT(32)(clip)).shape == clip.shape
+assert PQMF().synthesis(PQMF().analysis(clip)).shape == clip.shape
+assert design_prototype_filter().shape == (63,)
+assert AudioProcessor.adjust_audio_length(clip, 1000, "stretch").shape == (2, 1000)
+assert AudioProcessor.adjust_mask_length(clip > 0, 500, "nearest-exact").shape == (2, 500)
+scan = EffectBank(DEFAULT_TRAIN_EFFECTS, dispatch="scan")
+idxs = [np.array([0, 8]), np.array([8, 1])]
+ds = [draw(torch.Generator().manual_seed(3 + j), 2, 960, scan.draw_specs(i),
+           per_sample=True) for j, i in enumerate(idxs)]
+dm = disc_step(state, tcfg, audio, msg, ds[0])
+ms = train_steps(state, tcfg, scan, torch.stack([audio, audio]),
+                 torch.stack([msg, msg]), idxs, ds, train_disc=[True, False])
+assert ms["loss"].shape == (2,) and bool(torch.isfinite(ms["loss"]).all())
+check_finite(ms, 1)
+assert state.step == 3 and float(ms["adv/disc_loss"][1]) == 0.0
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

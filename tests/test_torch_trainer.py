@@ -3,10 +3,14 @@ log, checkpoints, samples), its weights file read by the port's WaveVerify
 and by the JAX package's load_weights_npz, --resume, a warm start, the
 training controllers under the r5 recipe's knobs (their log keys, their
 states in the checkpoint meta, read by the JAX package's classes), the
-r5 snapshot's restore by --init-meta, --reinit-msg-path, the options it
-does not implement raising, and the configuration's YAML reader."""
+r5 snapshot's restore by --init-meta, --reinit-msg-path, the JAX
+trainer's other options (--split-disc, --steps-per-dispatch,
+--effect-dispatch, --profile-steps, --tensorboard, --wandb,
+--debug-nans), the one option it does not implement raising, and the
+configuration's YAML reader."""
 
 import json
+import logging
 import subprocess
 import sys
 
@@ -171,12 +175,198 @@ def test_warm_start_loads_the_weights(run, tmp_path):
         assert torch.equal(p, q), n
 
 
-@pytest.mark.parametrize("flag", [
-    ["--num-devices", "2"], ["--steps-per-dispatch", "4"], ["--split-disc"],
-    ["--tensorboard", "tb"], ["--wandb", "proj"], ["--profile-steps", "1:3"]])
+def test_cli_takes_every_jax_flag():
+    """Every flag of ``python -m waveverify_tpu.train`` is a flag of the
+    port's CLI, but ``--platform`` and ``--pallas`` (``--device`` takes
+    their place)."""
+    import re
+    from pathlib import Path
+
+    def flags(path):
+        return set(re.findall(r'add_argument\(\s*"(--[\w-]+)"', Path(path).read_text()))
+
+    jax_flags = flags("waveverify_tpu/train/__main__.py")
+    port_flags = flags("waveverify_torch/train/__main__.py")
+    assert "--debug-nans" in jax_flags and "--device" in port_flags
+    assert jax_flags - port_flags == {"--platform", "--pallas"}
+
+
+@pytest.mark.parametrize("flag", [["--num-devices", "2"]])
 def test_unsupported_flags_raise_naming_themselves(tmp_path, flag):
     with pytest.raises(ValueError, match=flag[0]):
         main(_args(tmp_path, "--max-steps", "1", *flag))
+
+
+def test_split_disc_trains_as_the_monolithic_step(run, tmp_path):
+    """--split-disc: the discriminator's own step first, then the
+    generator's; the same training as the monolithic step, so its log
+    equals the ``run`` fixture's at the same steps."""
+    main(_args(tmp_path, "--max-steps", "2", "--split-disc", "--no-samples"))
+    split = [r for r in _log(tmp_path) if "loss" in r]
+    mono = [r for r in _log(run) if "loss" in r][:2]
+    assert [r["step"] for r in split] == [0, 1]
+    for a, b in zip(split, mono):
+        for k in ("loss", "adv/disc_loss", "grad_norm/discriminator",
+                  "grad_norm/generator", "dec/loss", "train/ber"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5, abs=1e-7), (a["step"], k)
+        assert a["adv/disc_loss"] > 0
+
+
+def test_steps_per_dispatch_logs_and_overshoots(tmp_path):
+    """--steps-per-dispatch 2 --max-steps 3: two dispatches (steps 0-1 and
+    2-3; the run ends at the first multiple of 2 past 3, as the JAX loop's
+    ``while step < total``), a log line at each dispatch's last step,
+    validation and samples at the dispatch boundaries, the meta at 4."""
+    main(_args(tmp_path, "--max-steps", "3", "--steps-per-dispatch", "2"))
+    lines = _log(tmp_path)
+    train_lines = [r for r in lines if "loss" in r]
+    assert [r["step"] for r in train_lines] == [1, 3]
+    assert [r["step"] for r in lines if "val/loss" in r] == [1, 3]
+    for r in lines:
+        assert all(np.isfinite(v) for v in r.values()), r
+    for key in ("adv/disc_loss", "grad_norm/generator", "time/host_s",
+                "step_time", "bits/acc_min"):
+        assert key in train_lines[0], key
+    root = tmp_path / "run"
+    assert json.loads((root / "latest" / "meta.json").read_text())["step"] == 4
+    assert sorted(p.name for p in (root / "samples").iterdir()) == ["step_2", "step_4"]
+
+
+def test_split_disc_refuses_steps_per_dispatch(tmp_path):
+    with pytest.raises(ValueError, match="split_disc_step requires steps_per_dispatch=1"):
+        main(_args(tmp_path, "--max-steps", "2", "--split-disc",
+                   "--steps-per-dispatch", "2"))
+
+
+def test_effect_dispatch_scan_trains(tmp_path):
+    """--effect-dispatch scan draws per sample; the run logs finite values,
+    and any other mode is refused by the parser."""
+    main(_args(tmp_path, "--max-steps", "2", "--effect-dispatch", "scan",
+               "--no-samples"))
+    lines = [r for r in _log(tmp_path) if "loss" in r]
+    assert [r["step"] for r in lines] == [0, 1]
+    assert all(np.isfinite(v) for r in lines for v in r.values())
+    with pytest.raises(SystemExit):
+        main(_args(tmp_path, "--effect-dispatch", "switch"))
+
+
+def test_match_reference_effect_cap_reaches_the_scheduler(tmp_path, monkeypatch):
+    """``TrainerConfig.match_reference_effect_cap`` (a config field, no flag,
+    as in the JAX package) is what the loop asks the scheduler for."""
+    from waveverify_torch.effects.scheduler import EffectScheduler
+
+    seen = []
+    select = EffectScheduler.select_bank_indices
+
+    def spy(self, n, specs, match_reference_cap=False):
+        seen.append(match_reference_cap)
+        return select(self, n, specs, match_reference_cap=match_reference_cap)
+
+    monkeypatch.setattr(EffectScheduler, "select_bank_indices", spy)
+    (tmp_path / "tiny.yml").write_text(TINY_YAML)
+    cfg = load_config(tmp_path / "tiny.yml")
+    for cap in (False, True):
+        train(cfg, TrainerConfig(ckpt_dir=str(tmp_path / f"cap{cap}"), device="cpu",
+                                 dump_samples=False, match_reference_effect_cap=cap),
+              max_steps=1)
+    assert seen == [False, True]
+
+
+@pytest.fixture(scope="module")
+def mirrored(tmp_path_factory):
+    """Three steps with --profile-steps 1:2, --tensorboard and --wandb, with
+    wandb made unimportable (it is not installed here; this keeps a machine
+    that has it from reaching the network); the trainer's warnings kept."""
+    tmp = tmp_path_factory.mktemp("mirrored")
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("waveverify_torch.train.loop")
+    logger.addHandler(handler)
+    saved = sys.modules.get("wandb")
+    sys.modules["wandb"] = None
+    try:
+        main(_args(tmp, "--max-steps", "3", "--profile-steps", "1:2",
+                   "--tensorboard", str(tmp / "tb"), "--wandb", "proj",
+                   "--no-samples"))
+    finally:
+        logger.removeHandler(handler)
+        if saved is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+    return tmp, [r.getMessage() for r in records]
+
+
+def test_profile_steps_writes_a_trace(mirrored):
+    """--profile-steps 1:2: one Chrome trace of step 1 in <ckpt-dir>/profile,
+    holding the step's operators (the chain's plain version among them on
+    the CPU)."""
+    tmp, _ = mirrored
+    traces = list((tmp / "run" / "profile").iterdir())
+    assert [t.name for t in traces] == ["steps_1_2.json"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("resblock_chain_ref" in n for n in names)
+    assert any(n.startswith("aten::") for n in names)
+
+
+def test_tensorboard_mirrors_the_log(mirrored):
+    """--tensorboard DIR: an events file whose scalars are the JSONL's."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    tmp, _ = mirrored
+    acc = EventAccumulator(str(tmp / "tb"))
+    acc.Reload()
+    assert {"loss", "val/loss", "step_time"} <= set(acc.Tags()["scalars"])
+    losses = [(e.step, e.value) for e in acc.Scalars("loss")]
+    jsonl = [(r["step"], r["loss"]) for r in _log(tmp) if "loss" in r]
+    assert [s for s, _ in losses] == [s for s, _ in jsonl] == [0, 1, 2]
+    np.testing.assert_allclose([v for _, v in losses], [v for _, v in jsonl],
+                               rtol=1e-6)
+
+
+def test_wandb_without_the_package_warns_and_logs_jsonl(mirrored):
+    """--wandb where wandb does not import: a warning, as the JAX trainer
+    gives, and the run goes on with its JSONL (and TensorBoard)."""
+    tmp, messages = mirrored
+    assert any(m.startswith("wandb unavailable") for m in messages), messages
+    assert [r["step"] for r in _log(tmp) if "loss" in r] == [0, 1, 2]
+
+
+def _nan_on_second_batch(monkeypatch):
+    """Synthetic clips whose second batch holds a NaN sample."""
+    import waveverify_torch.train.loop as loop
+
+    class NaNClips(SyntheticAudioDataset):
+        calls = 0
+
+        def batch(self, n):
+            audio = super().batch(n)
+            NaNClips.calls += 1
+            if NaNClips.calls == 2:
+                audio[0, 10] = np.nan
+            return audio
+
+    monkeypatch.setattr(loop, "SyntheticAudioDataset", NaNClips)
+
+
+def test_debug_nans_raises_where_the_plain_run_goes_on(tmp_path, monkeypatch):
+    """A NaN in step 1's batch: without --debug-nans the run ends with NaN
+    losses logged; with it, the run stops at step 1 with FloatingPointError."""
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+    _nan_on_second_batch(monkeypatch)
+    main(_args(tmp_path / "a", "--max-steps", "3", "--no-samples"))
+    losses = [r["loss"] for r in _log(tmp_path / "a") if "loss" in r]
+    assert np.isfinite(losses[0]) and np.isnan(losses[1]) and len(losses) == 3
+    _nan_on_second_batch(monkeypatch)
+    with pytest.raises(FloatingPointError, match="step 1"):
+        main(_args(tmp_path / "b", "--max-steps", "3", "--no-samples",
+                   "--debug-nans"))
+    assert [r["step"] for r in _log(tmp_path / "b") if "loss" in r] == [0]
 
 
 R5_META = "weights/snapshots/demo_r5_latest_meta.json"

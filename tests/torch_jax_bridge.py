@@ -90,6 +90,16 @@ def jax_bank_draws(key, bank_specs, b, t):
             if name in RANDOM_EFFECTS]
 
 
+def jax_scan_draws(key, bank_specs, effect_idx, t):
+    """The draws of the JAX "scan" bank under ``key``, one entry per
+    sample: sample i runs its branch on a ``[1, t]`` row under
+    ``split(key, B)[i]`` (empty for a branch without randomness)."""
+    keys = jax.random.split(key, len(effect_idx))
+    return [jax_effect_draws(*bank_specs[e], keys[i], 1, t)
+            if bank_specs[e][0] in RANDOM_EFFECTS else {}
+            for i, e in enumerate(effect_idx)]
+
+
 def jax_val_draws(key, eval_effects, b, t, sample_rate=16000,
                   window_duration=0.1):
     """The draws of JAX ``forward_valid`` under ``key``: localization,

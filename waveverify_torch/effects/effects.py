@@ -7,10 +7,11 @@ A random effect takes its draws as keyword arguments (``noise``, ``rows``,
 ``u``, ``log_freq`` / ``gain_db``, ``duration`` / ``volume``) and draws
 them from ``generator`` only when none are given. Each random effect has
 one draw function in :data:`RANDOM_EFFECTS`, with the shapes of the JAX
-package's draws (its "stack" bank draws once for the whole batch), so a
-test can feed an effect the JAX package's own draws, and the bank, the
-validation step and the sweep all draw the same way: beforehand, on a CPU
-generator, so a step can be replayed exactly.
+package's draws (its "stack" bank draws once for the whole batch, its
+"scan" bank once per sample, at batch 1), so a test can feed an effect
+the JAX package's own draws, and the bank, the validation step and the
+sweep all draw the same way: beforehand, on a CPU generator, so a step
+can be replayed exactly.
 
 Quantization, the median filter and the codec proxy pass the gradient
 straight through; shush and sample suppression pass it through the
@@ -567,21 +568,34 @@ class EffectBank:
     """The training attacks: a fixed list of (effect, params) branches, one
     chosen per sample by index.
 
-    :meth:`apply` runs each branch only on the samples that chose it. It
-    gives what the JAX package's "stack" dispatch gives (every branch on
-    the whole batch, each sample taking its own row), since every branch
-    acts on each row alone. A random branch's draws are made beforehand for
-    the whole batch (:func:`draw_effect`, one entry of ``fx_draws`` per
-    branch of :attr:`random_branches`, in order); each sample takes its own
-    rows of them, and a draw the JAX package makes once per call (the
-    echo's delay, the equaliser's band) is shared by every sample of the
-    branch."""
+    :meth:`apply` runs each branch only on the samples that chose it. Its
+    two dispatch modes are the JAX package's, and differ in how a random
+    branch's draws are made (beforehand, :meth:`draw_specs` says which):
+
+    - ``"stack"``: what the JAX "stack" dispatch gives (every branch on the
+      whole batch, each sample taking its own row), since every branch acts
+      on each row alone. A random branch's draws are made for the whole
+      batch (``fx_draws`` holds one entry per branch of
+      :attr:`random_branches`, in order); each sample takes its own rows of
+      them, and a draw the JAX package makes once per call (the echo's
+      delay, the equaliser's band) is shared by every sample of the branch.
+    - ``"scan"``: what the JAX "scan" dispatch gives (each sample runs its
+      branch alone on its ``[1, T]`` row with a key of its own), so every
+      draw is made per sample, the echo's delay and the equaliser's band
+      too: ``fx_draws`` holds one entry per sample, the draws of its
+      branch at batch 1 (empty for a branch without randomness), and a
+      random branch runs once per sample.
+    """
 
     def __init__(self, effects: Sequence[Tuple[str, Dict]],
-                 sample_rate: int = DEFAULT_SAMPLE_RATE):
+                 sample_rate: int = DEFAULT_SAMPLE_RATE,
+                 dispatch: str = "stack"):
+        if dispatch not in ("stack", "scan"):
+            raise ValueError(f"invalid dispatch mode {dispatch!r}")
         self.specs: List[Tuple[str, Dict]] = [
             (name, dict(params)) for name, params in effects]
         self.sample_rate = sample_rate
+        self.dispatch = dispatch
         self._fns = []
         for name, params in self.specs:
             kw = dict(params)
@@ -595,27 +609,41 @@ class EffectBank:
     @property
     def random_specs(self) -> List[Tuple[str, Dict]]:
         """(name, params) of each random branch, in the order of
-        ``fx_draws``."""
+        ``fx_draws`` under ``"stack"``."""
         return [self.specs[i] for i in self.random_branches]
+
+    def draw_specs(self, effect_idx) -> List[Tuple[str, Dict]]:
+        """What ``fx_draws`` holds draws of, in order: :attr:`random_specs`
+        under ``"stack"``; each sample's branch under ``"scan"``, to be drawn
+        at batch 1 (``watermarking.draw(..., per_sample=True)``)."""
+        if self.dispatch == "stack":
+            return self.random_specs
+        return [self.specs[e] for e in np.asarray(torch.as_tensor(effect_idx).cpu())]
 
     def apply(self, audio: torch.Tensor, mask: torch.Tensor, effect_idx,
               fx_draws: Sequence[Dict[str, Any]]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """audio, mask ``[B, T]``; effect_idx ``[B]`` branch indices (host
-        numpy or a CPU tensor: the grouping is done on the host);
-        fx_draws: the whole batch's draws of each random branch, on the
-        audio's device."""
+        numpy or a CPU tensor: the grouping is done on the host); fx_draws:
+        the draws :meth:`draw_specs` lists, on the audio's device."""
         idx = np.asarray(torch.as_tensor(effect_idx).cpu())
         out_a, out_m = audio, mask
         for e in np.unique(idx):
-            rows = torch.from_numpy(np.flatnonzero(idx == e)).to(audio.device)
-            kw = {}
-            if e in self.random_branches:
-                kw = take_rows(fx_draws[self.random_branches.index(e)], rows)
-            a, m = self._fns[e](audio[rows], mask[rows], None, **kw)
-            out_a = out_a.index_put((rows,), a)
-            if m is not None:
-                out_m = out_m.index_put((rows,), m.to(mask.dtype))
+            rows = np.flatnonzero(idx == e)
+            if self.dispatch == "scan" and e in self.random_branches:
+                calls = [([i], fx_draws[i]) for i in rows]  # each with its draws
+            else:
+                kw = {}
+                if e in self.random_branches:
+                    kw = take_rows(fx_draws[self.random_branches.index(e)],
+                                   torch.from_numpy(rows))
+                calls = [(rows, kw)]
+            for r, kw in calls:
+                r = torch.as_tensor(r).to(audio.device)
+                a, m = self._fns[e](audio[r], mask[r], None, **kw)
+                out_a = out_a.index_put((r,), a)
+                if m is not None:
+                    out_m = out_m.index_put((r,), m.to(mask.dtype))
         return out_a, out_m
 
     @classmethod

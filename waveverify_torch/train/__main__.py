@@ -16,9 +16,13 @@ warmup.*`` knob is ported (the training controllers), and so are
         --batch-size 16 --no-remat --set train_duration=0.9 ... (the
         script's --set flags)
 
-The flags still not ported, ``--num-devices``, ``--steps-per-dispatch``,
-``--split-disc``, ``--tensorboard``, ``--wandb`` and ``--profile-steps``,
-are accepted and raise ``ValueError`` naming themselves.
+So are the JAX trainer's other options: ``--split-disc``,
+``--steps-per-dispatch``, ``--effect-dispatch``, ``--profile-steps``
+(``torch.profiler``), ``--tensorboard``, ``--wandb`` (a warning and the
+JSONL log where wandb does not import) and ``--debug-nans`` (autograd's
+anomaly mode and a finiteness check per step). The one flag not ported,
+``--num-devices`` (several cards), is accepted and raises ``ValueError``
+naming itself.
 """
 
 from __future__ import annotations
@@ -31,14 +35,7 @@ from waveverify_torch.config import TrainConfig, load_config
 from waveverify_torch.train.loop import DEFAULT_CKPT_DIR, TrainerConfig, train
 
 # flag -> argparse default; any other value is refused
-_UNSUPPORTED = {
-    "num_devices": None,
-    "steps_per_dispatch": 1,
-    "split_disc": False,
-    "tensorboard": None,
-    "wandb": None,
-    "profile_steps": None,
-}
+_UNSUPPORTED = {"num_devices": None}
 
 
 _WORDS = {"true": True, "yes": True, "on": True, "false": False, "no": False,
@@ -132,14 +129,35 @@ def parse(argv: Optional[Sequence[str]] = None
                     "found a checkpoint)")
     ap.add_argument("--no-samples", action="store_true",
                     help="no WAV sample dumps")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1,
+                    help="K training steps per call; the controllers' inputs "
+                    "are held and the scheduler and controllers are fed once "
+                    "per K steps, and the run ends at a multiple of K")
+    ap.add_argument("--effect-dispatch", default="stack",
+                    choices=["stack", "scan"],
+                    help="EffectBank dispatch: 'stack' draws each random "
+                    "branch once for the batch; 'scan' draws per sample, as "
+                    "each sample ran its branch alone")
+    ap.add_argument("--split-disc", action="store_true",
+                    help="update the discriminator in a step of its own, on a "
+                    "no-grad generator forward, before the generator's step "
+                    "(same order and draws; one extra generator forward on "
+                    "steps where the discriminator trains)")
+    ap.add_argument("--tensorboard", default=None, metavar="DIR",
+                    help="also mirror scalars to TensorBoard events in DIR")
+    ap.add_argument("--wandb", default=None, metavar="PROJECT",
+                    help="mirror metrics + audio samples to a wandb project "
+                    "(no-ops with a warning when wandb is not installed)")
+    ap.add_argument("--profile-steps", default=None, metavar="START:STOP",
+                    help="torch.profiler trace of steps [START, STOP) to "
+                    "<ckpt-dir>/profile")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly mode and a finiteness check of "
+                    "each step's losses and gradient norms: fail fast on the "
+                    "first NaN with FloatingPointError")
     ap.add_argument("-v", "--verbose", action="store_true")
-    # the JAX trainer's flags that are not ported yet
+    # the JAX trainer's flag that is not ported
     ap.add_argument("--num-devices", type=int, default=None)
-    ap.add_argument("--steps-per-dispatch", type=int, default=1)
-    ap.add_argument("--split-disc", action="store_true")
-    ap.add_argument("--tensorboard", default=None)
-    ap.add_argument("--wandb", default=None)
-    ap.add_argument("--profile-steps", default=None)
     args = ap.parse_args(argv)
 
     for name, default in _UNSUPPORTED.items():
@@ -147,6 +165,9 @@ def parse(argv: Optional[Sequence[str]] = None
             raise ValueError(f"--{name.replace('_', '-')} is not supported by "
                              "the PyTorch trainer yet")
 
+    profile_start = profile_stop = None
+    if args.profile_steps:
+        profile_start, profile_stop = (int(v) for v in args.profile_steps.split(":"))
     overrides = _parse_set(args.set, ap)
     for key in ("batch_size", "val_batch_size", "train_duration", "val_duration"):
         if getattr(args, key) is not None:
@@ -167,6 +188,14 @@ def parse(argv: Optional[Sequence[str]] = None
         effects_config=args.effects_config,
         conv_precision=args.conv_precision,
         device=args.device,
+        steps_per_dispatch=args.steps_per_dispatch,
+        split_disc_step=args.split_disc,
+        effect_dispatch=args.effect_dispatch,
+        profile_start=profile_start,
+        profile_stop=profile_stop,
+        tensorboard_dir=args.tensorboard,
+        wandb_project=args.wandb,
+        debug_nans=args.debug_nans,
     )
     return cfg, trainer, args.max_steps, args.resume, args.verbose
 

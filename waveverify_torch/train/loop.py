@@ -42,7 +42,7 @@ from waveverify_torch.train.data import (
     prefetch_batches,
 )
 from waveverify_torch.train.state import TrainState, create_train_state, in_msg_path
-from waveverify_torch.train.step import train_step, val_step
+from waveverify_torch.train.step import disc_step, train_step, train_steps, val_step
 from waveverify_torch.train.watermarking import (
     draw,
     eval_random_effects,
@@ -55,15 +55,39 @@ DEFAULT_CKPT_DIR = "runs/torch_train"
 
 
 class Tracker:
-    """Per-step time, a JSONL history and the best validation loss."""
+    """Per-step time, a JSONL history and the best validation loss; every
+    logged scalar is mirrored to TensorBoard under ``tb_dir`` and to a
+    wandb project under ``wandb_project``, each where its package imports
+    (the JAX package's Tracker). A sink that does not start is logged as a
+    warning and the run goes on with the others."""
 
-    def __init__(self, log_file: Optional[str] = None):
+    def __init__(self, log_file: Optional[str] = None,
+                 tb_dir: Optional[str] = None,
+                 wandb_project: Optional[str] = None,
+                 wandb_config: Optional[Dict] = None):
         self.best_val_loss = float("inf")
         self.log_file = Path(log_file) if log_file else None
         if self.log_file is not None:
             self.log_file.parent.mkdir(parents=True, exist_ok=True)
         self._t_last = time.perf_counter()
         self._last_step: Optional[int] = None
+        self._tb = None
+        self._wandb = None
+        if tb_dir is not None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(tb_dir)
+            except Exception as exc:  # an optional sink never stops a run
+                logger.warning("TensorBoard unavailable (%s); JSONL only", exc)
+        if wandb_project is not None:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=wandb_project,
+                                         config=wandb_config or {})
+            except Exception as exc:
+                logger.warning("wandb unavailable (%s); JSONL/TB only", exc)
 
     def update(self, step: int, metrics: Dict[str, float],
                include_time: bool = True) -> Dict[str, float]:
@@ -79,7 +103,37 @@ class Tracker:
         if self.log_file:
             with self.log_file.open("a") as f:
                 f.write(json.dumps({"step": step, **metrics}) + "\n")
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
         return metrics
+
+    def log_audio(self, step: int, name: str, audio: np.ndarray,
+                  sample_rate: int) -> None:
+        """Mirror an audio sample to the live sinks; a failure is logged
+        and the run goes on."""
+        if self._wandb is not None:
+            try:
+                import wandb
+
+                self._wandb.log({name: wandb.Audio(audio, sample_rate=sample_rate)},
+                                step=step)
+            except Exception:
+                logger.exception("wandb audio log failed; continuing")
+        if self._tb is not None:
+            try:
+                self._tb.add_audio(name, torch.from_numpy(audio).reshape(1, -1),
+                                   step, sample_rate=sample_rate)
+            except Exception:
+                logger.exception("TB audio log failed; continuing")
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
     def is_best(self, val_loss: float) -> bool:
         if val_loss < self.best_val_loss:
@@ -306,20 +360,35 @@ def step_inputs(step: int, ramp: Optional[BerGatedRamp],
         fx_on=ramp.attacks_on())
 
 
+def dispatch_inputs(step: int, k: int, ramp: Optional[BerGatedRamp],
+                    curr: Optional[NbitsCurriculum], loss_cfg
+                    ) -> Tuple[StepInputs, List[bool]]:
+    """The inputs of the dispatch of steps [step, step + k), as the JAX loop
+    makes them: the controllers' inputs of its first step, held for all k
+    steps, and the discriminator's cadence, one flag per step (the
+    controllers do not move inside a dispatch)."""
+    return (step_inputs(step, ramp, curr, loss_cfg),
+            [step_inputs(step + j, ramp, curr, loss_cfg).train_disc
+             for j in range(k)])
+
+
 def feed_controllers(ramp: Optional[BerGatedRamp],
                      curr: Optional[NbitsCurriculum], train_ber,
-                     per_bit_acc) -> None:
-    """One step's feedback, as the JAX loop feeds it: the curriculum takes
-    the per-bit accuracy; the ramp takes the active bits' BER when the
-    curriculum is on, else ``train/ber``."""
+                     per_bit_acc, k: int = 1) -> None:
+    """One dispatch's feedback, covering ``k`` steps, as the JAX loop feeds
+    it: the curriculum takes the per-bit accuracy (its mean over the
+    dispatch's steps when it is ``[k, nbits]``); the ramp takes the active
+    bits' BER when the curriculum is on, else the mean of ``train/ber``,
+    and advances by ``k`` steps."""
     acc = np.asarray(per_bit_acc)
+    acc = acc.mean(axis=0) if acc.ndim == 2 else acc
     if curr is not None:
         curr.update(acc)
         gate_ber = 1.0 - float(acc[: curr.n_active].mean())
     else:
         gate_ber = float(np.mean(np.asarray(train_ber)))
     if ramp is not None:
-        ramp.update(gate_ber, k=1, per_bit_acc=acc,
+        ramp.update(gate_ber, k=k, per_bit_acc=acc,
                     n_active=curr.n_active if curr is not None else None)
 
 
@@ -347,9 +416,19 @@ class TrainerConfig:
     "highest" (or None) runs f32 with TF32 off on the card, "high" or
     "default" allow TF32 in cuDNN and cuBLAS.
 
-    Not ported (the CLI refuses them by name): ``--num-devices``,
-    ``--steps-per-dispatch``, ``--split-disc``, ``--tensorboard``,
-    ``--wandb``, ``--profile-steps``.
+    The JAX loop's other options: ``steps_per_dispatch`` K steps per call
+    (:func:`~waveverify_torch.train.step.train_steps`; the controllers
+    and the scheduler are fed once per dispatch, and the run ends at the
+    first multiple of K past its length); ``split_disc_step`` the split
+    step (K = 1 only); ``effect_dispatch`` the bank's ``"stack"`` or
+    ``"scan"``; ``match_reference_effect_cap`` the reference scheduler's
+    cap on attacked samples; ``profile_start`` / ``profile_stop`` a
+    ``torch.profiler`` trace of those steps in ``<ckpt_dir>/profile``;
+    ``tensorboard_dir`` and ``wandb_project`` the Tracker's mirrors;
+    ``debug_nans`` autograd's anomaly mode and a finiteness check of each
+    step's losses and gradient norms, raising ``FloatingPointError``.
+
+    Not ported (the CLI refuses it by name): ``--num-devices``.
     """
 
     train_folders: Tuple[str, ...] = ()
@@ -365,6 +444,15 @@ class TrainerConfig:
     effects_config: Optional[str] = None
     conv_precision: Optional[str] = None
     device: str = "cuda"
+    steps_per_dispatch: int = 1
+    split_disc_step: bool = False
+    effect_dispatch: str = "stack"
+    match_reference_effect_cap: bool = False
+    profile_start: Optional[int] = None
+    profile_stop: Optional[int] = None
+    tensorboard_dir: Optional[str] = None
+    wandb_project: Optional[str] = None
+    debug_nans: bool = False
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -379,10 +467,17 @@ def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _feed_scheduler(scheduler: EffectScheduler, metrics: Dict[str, Any],
-                    selections: List[Tuple[str, Dict]]) -> None:
-    """One scheduler update per sample from its BER and MIoU."""
+                    selections: List) -> None:
+    """One scheduler update per sample from its BER and MIoU; with K steps
+    per dispatch, ``selections`` holds K lists and the metrics are
+    ``[K, B]``."""
     bers = np.asarray(metrics["per_sample_ber"])
     mious = np.asarray(metrics["per_sample_miou"])
+    if selections and isinstance(selections[0], list):
+        for k, sel in enumerate(selections):
+            _feed_scheduler(scheduler, {"per_sample_ber": bers[k],
+                                        "per_sample_miou": mious[k]}, sel)
+        return
     for i, (name, params) in enumerate(selections[:len(bers)]):
         scheduler.update_effect_metrics(name, params,
                                         float(np.clip(bers[i], 0.0, 1.0)),
@@ -391,9 +486,11 @@ def _feed_scheduler(scheduler: EffectScheduler, metrics: Dict[str, Any],
 
 def _dump_audio_samples(state: TrainState, audio: torch.Tensor,
                         msg: torch.Tensor, ckpt_dir: str, step: int,
-                        sample_rate: int, n: int = 2) -> None:
+                        sample_rate: int, n: int = 2,
+                        tracker: Optional[Tracker] = None) -> None:
     """Write n (clean, watermarked) WAV pairs under
-    ``<ckpt_dir>/samples/step_<step>``."""
+    ``<ckpt_dir>/samples/step_<step>``, each watermarked one mirrored to
+    the tracker's live sinks."""
     from waveverify_torch.api.audio_io import save_audio
 
     out_dir = Path(ckpt_dir) / "samples" / f"step_{step}"
@@ -403,19 +500,22 @@ def _dump_audio_samples(state: TrainState, audio: torch.Tensor,
     for i in range(len(clean)):
         save_audio(clean[i], out_dir / f"{i}_clean.wav", sample_rate)
         save_audio(watermarked[i], out_dir / f"{i}_watermarked.wav", sample_rate)
+        if tracker is not None:
+            tracker.log_audio(step, f"samples/{i}_watermarked", watermarked[i],
+                              sample_rate)
 
 
 def _validate_and_save(state: TrainState, cfg: TrainConfig,
                        trainer: TrainerConfig, tracker: Tracker,
                        scheduler: EffectScheduler, val_ds, val_rng,
-                       eval_effects, step: int,
+                       eval_effects, step: int, step_end: int,
                        ramp: Optional[BerGatedRamp] = None,
                        curr: Optional[NbitsCurriculum] = None) -> None:
-    """Validation, then the ``latest``, ``best`` and ``save_iters``
-    checkpoints. Neither stops a long run: a failure is logged with its
-    traceback and training goes on."""
+    """After the dispatch of steps [step, step_end): validation, then the
+    ``latest``, ``best`` and ``save_iters`` checkpoints. Neither stops a
+    long run: a failure is logged with its traceback and training goes
+    on."""
     device = next(state.models.parameters()).device
-    step_end = step + 1
     vmetrics: Dict[str, float] = {}
     try:
         vaudio = torch.from_numpy(val_ds.batch(cfg.val_batch_size)).to(device)
@@ -428,7 +528,7 @@ def _validate_and_save(state: TrainState, cfg: TrainConfig,
                       gp=False).to(device)
         vmetrics = {k: float(v) for k, v in val_step(
             state, cfg, vaudio, vmsg, vdraws, eval_effects).items()}
-        tracker.update(step, vmetrics, include_time=False)
+        tracker.update(step_end - 1, vmetrics, include_time=False)
         logger.info("val @%d: loss %.4f ber %.4f miou %.4f", step_end,
                     vmetrics["val/loss"], vmetrics["val/ber"], vmetrics["val/miou"])
     except Exception:
@@ -475,19 +575,77 @@ def _msg_path_params(state: TrainState) -> Dict[str, torch.Tensor]:
             if in_msg_path(n)}
 
 
+def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """Raise ``FloatingPointError`` naming the step and the first loss or
+    gradient norm of a step's metrics (stacked ``[K]`` for a dispatch that
+    starts at ``step``) that is not finite. One wait for the card."""
+    names = [k for k in metrics if "loss" in k or k.startswith("grad_norm/")]
+    finite = torch.stack([torch.isfinite(metrics[k]).reshape(-1)
+                          for k in names]).cpu()
+    if bool(finite.all()):
+        return
+    j = int(torch.nonzero(~finite.all(dim=0))[0])
+    name = names[int(torch.nonzero(~finite[:, j])[0])]
+    value = float(metrics[name].reshape(-1)[j])
+    raise FloatingPointError(f"step {step + j}: {name} is {value}")
+
+
+class _StepProfile:
+    """A ``torch.profiler`` trace of steps [start, stop), checked at each
+    dispatch's first step as the JAX loop checks it, written as a Chrome
+    trace to ``<ckpt_dir>/profile/steps_<first>_<end>.json`` when it stops
+    (at ``stop`` or at the end of the run)."""
+
+    def __init__(self, ckpt_dir: str, start: Optional[int],
+                 stop: Optional[int], device: torch.device):
+        self.dir = Path(ckpt_dir) / "profile"
+        self.start, self.stop = start, stop
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = None
+        self._first = None
+
+    def at(self, step: int) -> None:
+        if (self.start is not None and self._prof is None
+                and self._first is None and step >= self.start
+                and (self.stop is None or step < self.stop)):
+            self._prof = torch.profiler.profile(activities=self.activities)
+            self._prof.start()
+            self._first = step
+        if self._prof is not None and self.stop is not None and step >= self.stop:
+            self.finish(step)
+
+    def finish(self, step: int) -> None:
+        if self._prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        path = self.dir / f"steps_{self._first}_{step}.json"
+        self._prof.export_chrome_trace(str(path))
+        self._prof = None
+        logger.info("profile of steps [%d, %d) written to %s", self._first, step, path)
+
+
 def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
           max_steps: Optional[int] = None, resume: bool = False) -> TrainState:
     """A training run; returns the final state. Runs on ``trainer.device``
     (``cuda`` by default; raises without a card). ``max_steps`` is the
     step count to stop at, counted from 0 (a resumed or restored run starts
-    at its checkpoint's step)."""
+    at its checkpoint's step); with K steps per dispatch the run goes on to
+    the end of the dispatch that reaches it, as the JAX loop does."""
+    k_steps = max(1, int(trainer.steps_per_dispatch))
+    if trainer.split_disc_step and k_steps > 1:
+        raise ValueError("split_disc_step requires steps_per_dispatch=1")
     device = resolve_device(trainer.device)
     if device.type == "cuda":
         set_conv_precision(trainer.conv_precision or "highest")
     sr = cfg.generator.sample_rate
     lc = cfg.loss
     fx_cfg = load_effects_config(trainer.effects_config)
-    bank = EffectBank(fx_cfg.train_effects, sr)
+    bank = EffectBank(fx_cfg.train_effects, sr, dispatch=trainer.effect_dispatch)
     eval_effects = list(fx_cfg.eval_effects)
     scheduler = EffectScheduler(
         effect_params=fx_cfg.effect_param_grid, beta=fx_cfg.beta,
@@ -495,7 +653,11 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
         miou_threshold=fx_cfg.miou_threshold,
         rng=np.random.RandomState(cfg.seed + 1))
     log_file = trainer.log_file or str(Path(trainer.ckpt_dir) / "train_log.jsonl")
-    tracker = Tracker(log_file)
+    tracker = Tracker(log_file, tb_dir=trainer.tensorboard_dir,
+                      wandb_project=trainer.wandb_project,
+                      wandb_config={"batch_size": cfg.batch_size,
+                                    "num_iters": cfg.num_iters,
+                                    "lr": cfg.optim.lr})
     ramp, curr = make_controllers(cfg)
     # which of the controllers' keys the log carries (the JAX loop's rule)
     alt = ramp is not None and lc.warmup_alt_period > 0
@@ -556,94 +718,149 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     identity = _identity_branch(bank)
 
     batches = prefetch_batches(train_ds, cfg.batch_size, nbits, data_seed)
-    pending = None  # (host metrics, selections, event) of the last step
+
+    def host_inputs(step: int, fx_on: bool):
+        """Step ``step``'s batch, its attacks (the identity branch while
+        the attack latch is closed) and its draws, on the host."""
+        audio_np, msg_np = next(batches)
+        if fx_on:
+            idx, selections = scheduler.select_bank_indices(
+                cfg.batch_size, bank.specs,
+                match_reference_cap=trainer.match_reference_effect_cap)
+        else:
+            idx = np.full(cfg.batch_size, identity, np.int32)
+            selections = [bank.specs[identity]] * cfg.batch_size
+        draws = draw(step_generator(cfg.seed, step), cfg.batch_size,
+                     audio_np.shape[1], bank.draw_specs(idx), sr,
+                     cfg.window_duration, jitter_hop,
+                     per_sample=bank.dispatch == "scan")
+        return audio_np, msg_np, idx, selections, draws
+
+    def run_dispatch(inputs, train_disc, parts, audios, msgs, draws, held):
+        """The dispatch's steps: one step (the split step's two halves with
+        ``split_disc_step``, its discriminator's only where it trains) or
+        K steps; returns (metrics, the scheduler's selections)."""
+        if k_steps > 1:
+            return (train_steps(state, cfg, bank, audios, msgs,
+                                [p[2] for p in parts], draws,
+                                train_disc=train_disc, **held),
+                    [p[3] for p in parts])
+        disc_metrics = {}
+        if trainer.split_disc_step and inputs.train_disc:
+            disc_metrics = disc_step(state, cfg, audios[0], msgs[0], draws[0])
+        metrics = train_step(state, cfg, bank, audios[0], msgs[0], parts[0][2],
+                             draws[0], train_disc=inputs.train_disc,
+                             update_disc=not trainer.split_disc_step, **held)
+        return {**metrics, **disc_metrics}, parts[0][3]
+
+    pending = None  # (host metrics, selections, event) of the last dispatch
     host_s, host_steps = 0.0, 0  # host time on data and the scheduler
+    profile = _StepProfile(trainer.ckpt_dir, trainer.profile_start,
+                           trainer.profile_stop, device)
+    step = start_step
     try:
-        for step in range(start_step, total):
-            t_host = time.perf_counter()
-            inputs = step_inputs(step, ramp, curr, lc)
-            audio_np, msg_np = next(batches)
-            if inputs.fx_on:
-                idx, selections = scheduler.select_bank_indices(cfg.batch_size,
-                                                                bank.specs)
-            else:  # the attack latch is closed: identity only
-                idx = np.full(cfg.batch_size, identity, np.int32)
-                selections = [bank.specs[identity]] * cfg.batch_size
-            draws = draw(step_generator(cfg.seed, step), cfg.batch_size,
-                         audio_np.shape[1], bank.random_specs, sr,
-                         cfg.window_duration, jitter_hop).to(device)
-            audio = torch.from_numpy(audio_np).to(device)
-            msg = torch.from_numpy(msg_np).to(device)
-            bit_mask = (None if inputs.bit_mask is None
-                        else torch.from_numpy(inputs.bit_mask).to(device))
-            host_s += time.perf_counter() - t_host
-            metrics = train_step(
-                state, cfg, bank, audio, msg, idx, draws,
-                percep_scale=inputs.percep_scale, train_disc=inputs.train_disc,
-                gen_update_scale=inputs.gen_update_scale,
-                msg_update_scale=inputs.msg_update_scale, bit_mask=bit_mask)
+        with torch.autograd.set_detect_anomaly(trainer.debug_nans):
+            while step < total:
+                profile.at(step)
+                t_host = time.perf_counter()
+                inputs, train_disc = dispatch_inputs(step, k_steps, ramp, curr, lc)
+                bit_mask = (None if inputs.bit_mask is None
+                            else torch.from_numpy(inputs.bit_mask).to(device))
+                held = dict(percep_scale=inputs.percep_scale,
+                            gen_update_scale=inputs.gen_update_scale,
+                            msg_update_scale=inputs.msg_update_scale,
+                            bit_mask=bit_mask)
+                parts = [host_inputs(step + j, inputs.fx_on) for j in range(k_steps)]
+                audios = torch.from_numpy(np.stack([p[0] for p in parts])).to(device)
+                msgs = torch.from_numpy(np.stack([p[1] for p in parts])).to(device)
+                draws = [p[4].to(device) for p in parts]
+                host_s += time.perf_counter() - t_host
+                try:
+                    metrics, selections = run_dispatch(inputs, train_disc, parts,
+                                                       audios, msgs, draws, held)
+                except RuntimeError as e:
+                    # autograd's anomaly mode found a NaN in a backward
+                    if trainer.debug_nans and "nan values" in str(e):
+                        raise FloatingPointError(f"step {state.step}: {e}") from e
+                    raise
+                if trainer.debug_nans:
+                    check_finite(metrics, step)
 
-            t_host = time.perf_counter()
-            if pending is not None:
-                if pending[2] is not None:
-                    pending[2].synchronize()
-                _feed_scheduler(scheduler, pending[0], pending[1])
-                feed_controllers(ramp, curr, pending[0]["train/ber"].numpy(),
-                                 pending[0]["per_bit_acc"].numpy())
-            host_metrics = _to_host(metrics)
-            event = None
-            if device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
-            pending = (host_metrics, selections, event)
-            host_s += time.perf_counter() - t_host
-            host_steps += 1
+                # the scheduler and the controllers take the last dispatch's
+                # metrics while the card runs this one
+                t_host = time.perf_counter()
+                if pending is not None:
+                    if pending[2] is not None:
+                        pending[2].synchronize()
+                    _feed_scheduler(scheduler, pending[0], pending[1])
+                    feed_controllers(ramp, curr, pending[0]["train/ber"].numpy(),
+                                     pending[0]["per_bit_acc"].numpy(), k=k_steps)
+                host_metrics = _to_host(metrics)
+                event = None
+                if device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
+                pending = (host_metrics, selections, event)
+                host_s += time.perf_counter() - t_host
+                host_steps += k_steps
 
-            step_end = step + 1
-            every = max(trainer.log_every, 1)
-            if step // every != step_end // every or step == start_step:
-                if event is not None:
-                    event.synchronize()
-                host = {k: float(v) for k, v in host_metrics.items()
-                        if v.dim() == 0}
-                if ramp is not None:
-                    host["ramp/percep_scale"] = ramp.scale()
-                    host["ramp/ber_ema"] = ramp.ema
-                    if ramp.fx_gate > 0:
-                        host["ramp/fx_on"] = float(inputs.fx_on)
-                    if msg_freeze:
-                        host["ramp/msg_on"] = float(ramp.msg_on())
-                if alt:
-                    host["ramp/gen_on"] = inputs.gen_update_scale
-                acc = host_metrics["per_bit_acc"].numpy()
-                host["bits/acc_min"] = float(acc.min())
-                host["bits/n_below_chance"] = float((acc < 0.45).sum())
-                if curr is not None:
-                    host["ramp/nbits_active"] = float(curr.n_active)
-                    host["bits/acc_min_active"] = float(acc[: curr.n_active].min())
-                # host seconds per step spent on data, draws and the scheduler
-                host["time/host_s"] = host_s / host_steps
-                host_s, host_steps = 0.0, 0
-                tracker.update(step, host)
-                logger.info("step %d loss %.4f dec %.4f loc %.4f ber %.4f miou %.4f",
-                            step, host["loss"], host["dec/loss"],
-                            host["loc/loss"], host["train/ber"],
-                            host["train/miou"])
+                step_end = step + k_steps
+                last_step = step_end - 1
+                every = max(trainer.log_every, 1)
+                if step // every != step_end // every or step == start_step:
+                    if event is not None:
+                        event.synchronize()
+                    host = {}
+                    for name, v in host_metrics.items():
+                        if name.startswith("per_sample"):
+                            continue
+                        if v.dim() == 0:
+                            host[name] = float(v)
+                        elif k_steps > 1 and v.dim() == 1 and v.shape[0] == k_steps:
+                            host[name] = float(v[-1])  # the dispatch's last step
+                    if ramp is not None:
+                        host["ramp/percep_scale"] = ramp.scale()
+                        host["ramp/ber_ema"] = ramp.ema
+                        if ramp.fx_gate > 0:
+                            host["ramp/fx_on"] = float(inputs.fx_on)
+                        if msg_freeze:
+                            host["ramp/msg_on"] = float(ramp.msg_on())
+                    if alt:
+                        host["ramp/gen_on"] = inputs.gen_update_scale
+                    acc = host_metrics["per_bit_acc"].numpy()
+                    acc = acc[-1] if acc.ndim == 2 else acc
+                    host["bits/acc_min"] = float(acc.min())
+                    host["bits/n_below_chance"] = float((acc < 0.45).sum())
+                    if curr is not None:
+                        host["ramp/nbits_active"] = float(curr.n_active)
+                        host["bits/acc_min_active"] = float(acc[: curr.n_active].min())
+                    # host seconds per step spent on data, draws and the scheduler
+                    host["time/host_s"] = host_s / host_steps
+                    host_s, host_steps = 0.0, 0
+                    tracker.update(last_step, host)
+                    logger.info("step %d loss %.4f dec %.4f loc %.4f ber %.4f miou %.4f",
+                                last_step, host["loss"], host["dec/loss"],
+                                host["loc/loss"], host["train/ber"],
+                                host["train/miou"])
 
-            if trainer.dump_samples and (step // cfg.sample_freq
-                                         != step_end // cfg.sample_freq
-                                         or step_end >= total):
-                _dump_audio_samples(state, audio, msg, trainer.ckpt_dir,
-                                    step_end, sr)
+                if trainer.dump_samples and (step // cfg.sample_freq
+                                             != step_end // cfg.sample_freq
+                                             or step_end >= total):
+                    _dump_audio_samples(state, audios[-1], msgs[-1], trainer.ckpt_dir,
+                                        step_end, sr, tracker=tracker)
 
-            if step // cfg.valid_freq != step_end // cfg.valid_freq or step_end >= total:
-                _validate_and_save(state, cfg, trainer, tracker, scheduler,
-                                   val_ds, val_rng, eval_effects, step, ramp,
-                                   curr)
+                if (step // cfg.valid_freq != step_end // cfg.valid_freq
+                        or step_end >= total):
+                    _validate_and_save(state, cfg, trainer, tracker, scheduler,
+                                       val_ds, val_rng, eval_effects, step,
+                                       step_end, ramp, curr)
+                step = step_end
         if pending is not None:
             if pending[2] is not None:
                 pending[2].synchronize()
             _feed_scheduler(scheduler, pending[0], pending[1])
     finally:
+        profile.finish(step)
         batches.close()
+        tracker.close()
     return state

@@ -22,6 +22,12 @@ them, or the message path's); ``bit_mask`` weighs the bits of every
 decoding loss.
 
 The pieces are functions of their own so a caller can time them apart.
+
+Two other forms of the step, as the JAX package has them: the split step
+(:func:`disc_step`, then :func:`train_step` with ``update_disc=False``),
+whose discriminator update runs on a no-grad generator forward of its own
+before the generator's step; and :func:`train_steps`, K steps in one call
+with the controllers' inputs held and the metrics stacked on the card.
 """
 
 from __future__ import annotations
@@ -231,8 +237,8 @@ def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
                draws: Draws, percep_scale: Optional[float] = None,
                train_disc: bool = True, gen_update_scale: float = 1.0,
                msg_update_scale: float = 1.0,
-               bit_mask: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               bit_mask: Optional[torch.Tensor] = None,
+               update_disc: bool = True) -> Dict[str, torch.Tensor]:
     """One step; updates ``state`` in place and returns its metrics as
     tensors on the device (the host reads them when it needs them).
 
@@ -241,11 +247,15 @@ def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
     device; the controllers' inputs as the module docstring says
     (``bit_mask`` on the device). Without ``train_disc`` the discriminator,
     its optimizer and its schedule stay as they are, and
-    ``adv/disc_loss`` and ``grad_norm/discriminator`` report 0."""
+    ``adv/disc_loss`` and ``grad_norm/discriminator`` report 0. Without
+    ``update_disc`` (the generator's half of the split step) the
+    discriminator is not updated either, and those two report 0, but the
+    adversarial terms still run against it when ``train_disc`` is on:
+    :func:`disc_step` has updated it first."""
     if percep_scale is None:
         percep_scale = step_ramp(state.step, cfg.loss)
     outs = forward(state, cfg, bank, audio, msg, effect_idx, draws)
-    if train_disc:
+    if train_disc and update_disc:
         d_loss, d_norm = discriminator_update(state, cfg, outs["residual"],
                                               audio, draws.gp_alpha)
     else:
@@ -260,6 +270,43 @@ def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
             **norms,
             "grad_norm/discriminator": d_norm,
             **feedback(outs, msg)}
+
+
+def disc_step(state: TrainState, cfg: TrainConfig, audio: torch.Tensor,
+              msg: torch.Tensor, draws: Draws) -> Dict[str, torch.Tensor]:
+    """The discriminator's half of the split step (JAX ``make_disc_step``):
+    a no-grad generator forward, then the discriminator update on its
+    output against the clean audio with the step's ``draws.gp_alpha``.
+    ``state.step`` does not move; :func:`train_step` with
+    ``update_disc=False`` follows, on the same inputs and draws."""
+    with torch.no_grad():
+        fake = state.models.apply_generator(audio, msg)
+    d_loss, d_norm = discriminator_update(state, cfg, fake, audio,
+                                          draws.gp_alpha)
+    return {"adv/disc_loss": d_loss, "grad_norm/discriminator": d_norm}
+
+
+def train_steps(state: TrainState, cfg: TrainConfig, bank: EffectBank,
+                audios: torch.Tensor, msgs: torch.Tensor, idxs: Sequence,
+                draws_list: Sequence[Draws], percep_scale: Optional[float] = None,
+                train_disc: Optional[Sequence[bool]] = None,
+                gen_update_scale: float = 1.0, msg_update_scale: float = 1.0,
+                bit_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """K steps in one call (JAX ``make_multi_train_step``): audios
+    ``[K, B, T]``, msgs ``[K, B, nbits]``, ``idxs`` K index arrays and
+    ``draws_list`` K draws, one per step. ``percep_scale`` (None: each
+    step's own step-indexed ramp), ``gen_update_scale``,
+    ``msg_update_scale`` and ``bit_mask`` hold for the whole dispatch;
+    ``train_disc`` is one flag per step (None: every step). Returns each
+    metric stacked on a leading ``[K]`` axis, on the card: nothing inside
+    waits for it."""
+    k = len(draws_list)
+    disc = [True] * k if train_disc is None else [bool(x) for x in train_disc]
+    steps = [train_step(state, cfg, bank, audios[j], msgs[j], idxs[j],
+                        draws_list[j], percep_scale, disc[j], gen_update_scale,
+                        msg_update_scale, bit_mask) for j in range(k)]
+    return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
 
 
 @torch.no_grad()

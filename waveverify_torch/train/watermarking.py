@@ -26,6 +26,7 @@ from waveverify_torch.effects.augment import (
 )
 from waveverify_torch.effects.effects import (
     DEFAULT_EVAL_EFFECTS,
+    RANDOM_EFFECTS,
     AudioEffects,
     EffectBank,
     draw_effect,
@@ -46,9 +47,10 @@ class Draws:
     seq_u, seq_shift, seq_perm: the sequence augmentation's choice, shift
     and segment permutation; fx: the draws of each random branch of the
     bank (training) or each random effect of the sweep (validation), one
-    dict of whole-batch draws each (``effects.draw_effect``); jitter,
-    jitter_clean ``[B]``: the sub-hop rolls (None when off); gp_alpha
-    ``[B]``: the gradient penalty's interpolation weights (None in
+    dict of whole-batch draws each (``effects.draw_effect``), or under the
+    bank's "scan" dispatch one dict per sample (``EffectBank.draw_specs``);
+    jitter, jitter_clean ``[B]``: the sub-hop rolls (None when off);
+    gp_alpha ``[B]``: the gradient penalty's interpolation weights (None in
     validation)."""
 
     loc_scores: torch.Tensor
@@ -71,14 +73,19 @@ class Draws:
 def draw(generator: torch.Generator, b: int, t: int,
          random_effects: Sequence[Tuple[str, Dict]] = (),
          sample_rate: int = 16000, window_duration: float = 0.1,
-         jitter_hop: int = 0, gp: bool = True) -> Draws:
+         jitter_hop: int = 0, gp: bool = True,
+         per_sample: bool = False) -> Draws:
     """Every draw of a step from a CPU ``generator``, on the CPU;
     ``random_effects`` lists the (name, params) whose draws ``fx`` holds
-    (``EffectBank.random_specs``, or the sweep's random effects)."""
+    (``EffectBank.draw_specs``, or the sweep's random effects), each drawn
+    for the whole batch, or with ``per_sample`` (the bank's "scan"
+    dispatch: one entry per sample) for one row, an effect without
+    randomness drawing nothing."""
     scores, probs, offset = draw_localization(generator, b, t, sample_rate,
                                               window_duration)
     u, shift, perm = draw_sequence(generator, t, sample_rate)
-    fx = [draw_effect(name, params, generator, b, t)
+    fx = [draw_effect(name, params, generator, 1 if per_sample else b, t)
+          if name in RANDOM_EFFECTS else {}
           for name, params in random_effects]
     jitter = jitter_clean = None
     if jitter_hop > 0:
