@@ -78,11 +78,23 @@ Phases, each fatal on failure:
      and ms per step and host share against K = 1 (phase 6's CLI); (iii)
      the 20-branch bank under --effect-dispatch scan card vs CPU, forward
      and backward, its ms against stack, and the CLI for 4 steps under
-     scan with the 20-effect YAML; (iv) the CLI for 6 steps with
-     --profile-steps 2:4 --tensorboard --debug-nans: the trace names the
+     scan with the 20-effect YAML; (iv) the CLI for 4 steps with
+     --profile-steps 1:2 --tensorboard --debug-nans: the trace names the
      chain kernel, the TensorBoard events (or, where it does not import,
      the trainer's warning); (v) STDCT, MDCT, PQMF and adjust_audio_length
-     at batch 64 x 1 s card vs CPU, and the inverses' round trips.
+     at batch 64 x 1 s card vs CPU, and the inverses' round trips;
+ 10. the SEANet and conv options and the native WAV ingest (each fatal on
+     failure): for each variant of tests/variants.py (wide_skips, grouped,
+     kernel_alpha) at conf/base.yml width from random init, seed 0: (i)
+     embed+detect at batch 64 x 1 s f32, the kernel's launches per call as
+     the JAX gate decides (none for wide_skips and grouped; kernel_alpha's
+     generator chains, w = v and alpha 0.5, held to the blocks run one by
+     one in plain PyTorch), ms per call, card vs CPU on 2 rows; (ii) locate
+     at batch 64; (iii) one step at batch 2 card vs CPU; (iv) wide_skips'
+     batch-32 step with remat, ms and peak memory; (v) the native ingest:
+     built with g++ and used by the folder dataset, its rows slices of the
+     Python decode, a corrupt file's error, ms per batch-32 crop batch
+     native vs Python, and 3 steps of the training CLI on a WAV folder.
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 
@@ -702,7 +714,9 @@ def check_chain_grads(torch, rc, report):
 
 
 def check_train_step(torch, rc, report, gates=None, label="train_step_check",
-                     bank=None, idx=None, audio=None, spread=False):
+                     bank=None, idx=None, audio=None, spread=False, cfg=None,
+                     chains=TRAIN_CHAINS, scalar_spread=False, prepare=None,
+                     leaf_floor=0.0, scalar_limits=None):
     """Training a: one step at full width (TrainConfig(), batch 2 x 16000)
     on the card against the same step of the port on the CPU, from the
     same seed-0 parameters and draws, f32 with TF32 off: the losses, the
@@ -714,40 +728,59 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     norm is held to GATED_NORM_TOL. ``bank``, ``idx`` and ``audio``
     replace the shipped bank, the scheduler's choice of branches and the
     synthetic clips. With ``spread`` the card runs the step twice more at
-    audio * (1 +- 1e-7), and each leaf is held to its network's
-    TRAIN_GRAD_TOL or four times how far the card's own gradient of that
-    leaf moved, whichever is larger. Returns the launches of the card's
-    step."""
+    audio * (1 +- 1e-7) (or at audio * (1 + e) for each e of a tuple), and
+    each leaf is held to its network's TRAIN_GRAD_TOL or four times how far
+    the card's own gradient of that leaf moved, whichever is larger; with
+    ``scalar_spread`` too each loss and gradient norm to its limit (1e-4,
+    TRAIN_NORM_TOL) or four times how far the card's own value moved. ``cfg`` replaces TrainConfig() (batch 2 is set), ``chains``
+    the chains of its forward that take the kernel, and ``prepare`` is run
+    on each state's models after their random init. With ``leaf_floor`` a
+    leaf's deviation is measured against at least that share of its
+    network's gradient norm (a gradient far below its network's cannot be
+    compared relative to itself). ``scalar_limits`` raises the limit of
+    the losses it names. Returns the launches of
+    the card's step."""
     import dataclasses
 
     from waveverify_torch.config import TrainConfig
     from waveverify_torch.effects.effects import EffectBank
     from waveverify_torch.train.state import create_train_state
 
-    cfg = dataclasses.replace(TrainConfig(), batch_size=2)
+    what = "TrainConfig()" if cfg is None else "its config"
+    cfg = dataclasses.replace(cfg or TrainConfig(), batch_size=2)
     bank = bank or EffectBank.default_train_bank()
     batch = train_batch(cfg, bank, 2, 0, idx, audio)
     states, metrics = {}, {}
     for dev in ("cpu", "cuda"):
         states[dev] = create_train_state(cfg, torch.Generator().manual_seed(0),
                                          torch.device(dev))
+        if prepare is not None:
+            prepare(states[dev].models)
         t0 = time.perf_counter()
         rc.resblock_chain.launches = 0
         metrics[dev] = run_train_step(torch, states[dev], cfg, bank, batch, dev, gates)
         torch.cuda.synchronize()
         report.setdefault(label, {})[f"{dev}_s"] = time.perf_counter() - t0
     launches = rc.resblock_chain.launches
-    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in chains)
     if launches != per_step:
         raise AssertionError(f"train step launched {launches} chain kernels, "
                              f"expected {per_step} (remat: 2 x the forward's)")
-    # the card's own spread per leaf, under audio * (1 +- 1e-7)
-    own = {}
-    for e in ((1e-7, -1e-7) if spread else ()):
+    # the card's own spread per leaf and per scalar, under audio * (1 + e)
+    own, own_scalar = {}, {}
+    for e in ((1e-7, -1e-7) if spread is True else spread or ()):
         st = create_train_state(cfg, torch.Generator().manual_seed(0),
                                 torch.device("cuda"))
+        if prepare is not None:
+            prepare(st.models)
         audio_e, *rest = batch
-        run_train_step(torch, st, cfg, bank, (audio_e * (1 + e), *rest), "cuda", gates)
+        m_e = run_train_step(torch, st, cfg, bank, (audio_e * (1 + e), *rest), "cuda",
+                             gates)
+        for k, v in metrics["cuda"].items():
+            if v.dim() == 0 and k not in ("train/ber", "train/miou"):
+                ref_v = float(v)
+                own_scalar[k] = max(own_scalar.get(k, 0.0), abs(float(m_e[k]) - ref_v)
+                                    / max(abs(ref_v), 1e-12))
         for net in TRAIN_NETS:
             ref = dict(getattr(states["cuda"].models, net).named_parameters())
             for n, p in getattr(st.models, net).named_parameters():
@@ -764,6 +797,8 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     untrained = set() if (gates or {}).get("train_disc", True) else {"discriminator"}
     for net in TRAIN_NETS:
         ref = dict(getattr(states["cpu"].models, net).named_parameters())
+        sq = [(q.grad.double() ** 2).sum() for q in ref.values() if q.grad is not None]
+        floor = leaf_floor * float(torch.stack(sq).sum().sqrt()) if sq else 0.0
         devs = {}
         for n, p in getattr(states["cuda"].models, net).named_parameters():
             g, g_ref = p.grad, ref[n].grad
@@ -775,7 +810,8 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
                 continue
             if g is None or g_ref is None:
                 raise AssertionError(f"train step {net}.{n}: no gradient")
-            devs[n] = float((g.cpu() - g_ref).norm() / g_ref.norm().clamp_min(1e-30))
+            devs[n] = float((g.cpu() - g_ref).norm()
+                            / g_ref.norm().clamp_min(max(floor, 1e-30)))
         limits = {n: max(TRAIN_GRAD_TOL[net], 4 * own.get((net, n), 0.0)) for n in devs}
         worst = max(devs, key=lambda n: devs[n] / limits[n])
         grad_dev[net] = (worst, devs[worst])
@@ -783,8 +819,13 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     rel = {k: abs(float(gpu[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-12)
            for k, v in cpu.items() if v.dim() == 0}
     norm_limit = {}
+    if scalar_spread:
+        norm_limit = {k: max(TRAIN_NORM_TOL if k.startswith("grad_norm/") else 1e-4,
+                             4 * v) for k, v in own_scalar.items()}
     if gates and not gates.get("percep_scale", 1.0):
         norm_limit["grad_norm/generator"] = GATED_NORM_TOL
+    for k, v in (scalar_limits or {}).items():
+        norm_limit[k] = max(norm_limit.get(k, 1e-4), v)
     # Adam's first step moves a parameter by lr * g / (|g| + eps): a gradient
     # sign the two sides round apart costs up to 2 lr, plus the rounding of
     # p +- lr in f32
@@ -811,8 +852,9 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
                           "max_param_dev": worst_param, "launches": launches,
                           "gates": {k: (v.tolist() if hasattr(v, "tolist") else v)
                                     for k, v in (gates or {}).items()}})
-    print(f"{label}, card vs CPU (TrainConfig(), batch 2 x {CLIP}, f32, TF32 "
-          f"off, gates {gates or 'none'}): {launches} chain launches; rel dev " + ", ".join(
+    report[label]["norm_limit"] = norm_limit
+    print(f"{label}, card vs CPU ({what}, batch 2 x {CLIP}, f32, TF32 off, "
+          f"gates {gates or 'none'}): {launches} chain launches; rel dev " + ", ".join(
               f"{k} {v:.2e}" for k, v in rel.items())
           + "; worst leaf's gradient rel dev " + ", ".join(
               f"{k} {v[1]:.2e} ({v[0]}, limit {leaf_limit[k]:.1e})"
@@ -820,8 +862,9 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
           + "; max |param dev| " + ", ".join(
               f"{k} {v:.2e}" for k, v in worst_param.items())
           + f" (lr {TRAIN_LR})" + "".join(
-              f"; {k} limit {v:.0e} (perceptual terms off)"
-              for k, v in norm_limit.items()) + f" [{card}]")
+              f"; {k} limit {v:.1e}" for k, v in norm_limit.items()
+              if v > (TRAIN_NORM_TOL if k.startswith("grad_norm/") else 1e-4))
+          + f" [{card}]")
     for k, v in rel.items():
         if k in ("train/ber", "train/miou"):
             # thresholded decisions: two of the 32 bits, 1e-3 of MIoU
@@ -1803,8 +1846,9 @@ SPLIT_LOSS_TOL = 1e-5
 DISPATCH_K = 4
 DISPATCH_STEPS = 8
 SCAN_CLI_STEPS = 4
-PROFILE_CLI_STEPS = 6
-PROFILE_RANGE = (2, 4)
+# 4 anomaly-mode steps: one profiled, one after it timed
+PROFILE_CLI_STEPS = 4
+PROFILE_RANGE = (1, 2)
 TRANSFORM_TOL = 1e-5
 # a short validation for phase 9's CLI runs (the launches do not depend on it)
 SHORT_VAL = ["--val-batch-size", "4", "--val-duration", "1"]
@@ -2081,7 +2125,7 @@ def check_scan_cli(torch, rc, report):
 
 def check_profile_cli(torch, rc, report, k1_log):
     """Phase 9.4: the CLI at TrainConfig() for PROFILE_CLI_STEPS steps with
-    --profile-steps 2:4 --tensorboard DIR --debug-nans: the run ends
+    --profile-steps 1:2 --tensorboard DIR --debug-nans: the run ends
     without raising; the trace of steps 2-3 exists and names the chain
     kernel among its CUDA kernel events; where TensorBoard imports, its
     events file holds ``loss`` at every step, else (the JAX behaviour) the
@@ -2205,6 +2249,323 @@ def check_transforms(torch, report):
     bad = {k: v for k, v in dev.items() if not v <= TRANSFORM_TOL}
     if bad:
         raise AssertionError(f"transforms card vs CPU: {bad}")
+
+
+# 10. the option variants (tests/variants.py) at conf/base.yml width, and
+# the native WAV ingest.
+# card vs the card machine's CPU on the card's first rows: the residual and
+# the detector's and locator's logits (absolute), as RANDOM_INIT_TOL
+VARIANT_TOL = 1e-4
+VARIANT_CPU_ROWS = 2
+# the relative audio changes the variants' card-vs-CPU step measures the
+# card's own spread at (phase 8's 1e-7, and 1e-6): the card and the CPU part
+# further than a 1e-7 change of the audio moves a step (wide_skips'
+# detector gate gradient: 4.4e-02 card vs CPU, 7.5e-03 under 1e-7; its
+# stft/loss 1.6e-04); each leaf, loss and gradient norm is held to phase
+# 6's limit or four times that spread, whichever is larger
+VARIANT_SPREAD = (1e-7, -1e-7, 1e-6, -1e-6)
+# wide_skips' generator puts out a residual of rms 8.7e-07 on the step's
+# clips even with its gates moved off zero (1.7e-11 at init), so its
+# perceptual and adversarial losses compare the rounding of audio +
+# residual (on the CPU audio * (1 +- 1e-7) moved adv/feat_loss by 1.3e-04).
+# For the card-vs-CPU step the gain of its last conv (weight
+# standardization's g) is raised by this factor, to a residual of rms
+# 8.7e-03 (adv/feat_loss then moves 1.6e-05)
+WIDE_SKIPS_OUT_GAIN = 1e4
+# a variant's gradient leaf under 1e-3 of its network's gradient norm is
+# measured against 1e-3 of that norm (tests/train_parity.py floors at 1e-6
+# on the CPU, against JAX): wide_skips' decoder.block_2_2.res_scale_param
+# reads 5e-08 of the generator's norm on the CPU and 1.35e-05 of it on the
+# card, while audio * (1 +- 1e-6) moves it by 1e-06 of it on the card (the
+# weight standardization's reductions round differently per device, and a
+# change of the audio does not reach them)
+VARIANT_LEAF_FLOOR = 1e-3
+# grouped's residual is a constant (a layer norm over the last conv's one
+# channel leaves its bias), so its STFT, mel and feature-matching losses
+# compare the rounding of the bins and features the constant does not
+# reach: card vs CPU 8.82e-03, 1.91e-03 and 2.17e-01 (H100 80GB HBM3,
+# 700 W), while audio * (1 +- 1e-6) moved them by 5.4e-05, under 2.5e-05
+# and 2.9e-02 on the card. Limits about four times the readings
+VARIANT_LOSS_TOL = {"grouped": {"stft/loss": 4e-2, "mel/loss": 1e-2,
+                                "adv/feat_loss": 1.0}}
+VARIANT_STEP_BATCH = 32
+VARIANT_STEPS = 6
+# a native row against the Python decode of its file (the native mixdown
+# sums channels in another order)
+NATIVE_TOL = 2e-7
+NATIVE_BATCH = 32
+NATIVE_FILES = 32
+NATIVE_CLI_STEPS = 3
+
+
+def _variant_cfg(name):
+    from tests import variants
+    from waveverify_torch.config import TrainConfig
+
+    return variants.apply(TrainConfig(), name)
+
+
+def _variant_chains(name):
+    """(generator, detector, locator) chains that take the kernel under
+    variant ``name``: those of the networks the JAX gate sends to it."""
+    from tests.variants import KERNEL_NETS
+
+    nets = KERNEL_NETS[name]
+    return (GEN_ENC + GEN_DEC if "generator" in nets else [],
+            DET_ENC if "detector" in nets else [],
+            LOC_ENC if "locator" in nets else [])
+
+
+def check_variant_kernel(torch, rc, report, name, card):
+    """Phase 10.0: each chain of the variant's generator and locator that
+    the gate hands to the kernel, the kernel (weights of the random init, w
+    = v, its ELU alpha) against the same blocks run one by one in plain
+    PyTorch, at batch 2 (launches outside the counted paths)."""
+    from waveverify_torch.modules import seanet
+
+    errs = {}
+    for net in ("generator", "locator"):
+        m = getattr(card.models, net)
+        stacks = [m.encoder] + ([m.decoder] if net == "generator" else [])
+        for stack in stacks:
+            chains = {}
+            for key, blk in stack.named_children():
+                if isinstance(blk, seanet.SEANetResnetBlock):
+                    chains.setdefault(key.rsplit("_", 1)[0], []).append(blk)
+            for key, blocks in chains.items():
+                c = blocks[0].block_0_pw.conv.v.shape[0]
+                x = torch.randn(2, c, 4000, generator=torch.Generator().manual_seed(c),
+                                ).cuda() * 0.3
+                with torch.no_grad():
+                    before = rc.resblock_chain.launches
+                    y = seanet._apply_resblock_chain(blocks, x)
+                    ran = rc.resblock_chain.launches - before
+                    ref = x
+                    for blk in blocks:
+                        ref = blk(ref)
+                if not ran:
+                    raise AssertionError(f"{name} {net} {key}: no kernel launch")
+                errs[f"{net}.{key} C={c} M={len(blocks)}"] = check_close(
+                    torch, y, ref, f"{name} {net} {key} kernel vs plain")
+    report.setdefault("variants", {}).setdefault(name, {})["kernel_vs_plain"] = errs
+    print(f"10.0 {name}: the chain kernel (alpha {blocks[0].alpha}, no weight norm) "
+          "vs the blocks one by one in plain PyTorch, batch 2 x 4000, max |err| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (limit {F32_DRIFT:.0e}, half of atol)")
+    return max(errs.values())
+
+
+def check_variant(torch, rc, report, name):
+    """Phase 10 (i)-(iii) for variant ``name`` at conf/base.yml width from
+    ``WaveVerify(None, config=..., seed=0)``: (i) embed+detect at batch 64
+    x 1 s f32 on the card, launches per call as the JAX gate decides, ms
+    per call (CUDA events); card vs CPU on the first rows: residual and
+    logits within VARIANT_TOL; (ii) locate at batch 64, its launches and
+    ms; (iii) one training step at batch 2, card vs CPU, under phase 6's
+    limits or four times the card's own spread. Returns (launches of (i),
+    (ii) and (iii), the kernel's max |err| against its plain version)."""
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+    from waveverify_torch.serve import embed_detect, locate_probs
+
+    cfg = _variant_cfg(name)
+    gen, det, loc = _variant_chains(name)
+    per = {"embed_detect": sum(rc.launches_per_chain(c, m) for _, c, m in gen + det),
+           "locate": sum(rc.launches_per_chain(c, m) for _, c, m in loc)}
+    card = WaveVerify(None, config=cfg, seed=0, device="cuda")
+    cpu = WaveVerify(None, config=cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(10)
+    audio = (rng.randn(BATCH, CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (BATCH, 16)).astype(np.float32)
+    a_dev, m_dev = torch.tensor(audio, device="cuda"), torch.tensor(bits, device="cuda")
+    rc.resblock_chain.launches = 0
+    w, p = embed_detect(card.models, a_dev, m_dev, "float32")
+    torch.cuda.synchronize()
+    n_ed = rc.resblock_chain.launches
+    probs = locate_probs(card.models, a_dev, "float32")
+    torch.cuda.synchronize()
+    n_loc = rc.resblock_chain.launches - n_ed
+    got = {"embed_detect": n_ed, "locate": n_loc}
+    if got != per:
+        raise AssertionError(f"{name}: launches per call {got} != the gate's {per}")
+    for arr in (w, p, probs):
+        if not bool(torch.isfinite(arr).all()):
+            raise AssertionError(f"{name}: non-finite output")
+    ms_ed = cuda_time(torch, lambda: embed_detect(card.models, a_dev, m_dev, "float32"), 5)
+    ms_loc = cuda_time(torch, lambda: locate_probs(card.models, a_dev, "float32"), 5)
+    kernel_err = check_variant_kernel(torch, rc, report, name, card) if gen else None
+    r = VARIANT_CPU_ROWS
+    with torch.no_grad():
+        a2, m2 = torch.tensor(audio[:r]), torch.tensor(bits[:r])
+        r_cpu = cpu.models.apply_generator(a2, m2)
+        r_card = card.models.apply_generator(a2.cuda(), m2.cuda()).cpu()
+    w2 = (a2 + r_cpu).numpy()
+    (d_cpu, l_cpu), (d_card, l_card) = _logits(torch, cpu, w2), _logits(torch, card, w2)
+    dev = {"residual": float((r_card - r_cpu).abs().max()),
+           "detector_logits": float((d_card - d_cpu).abs().max()),
+           "locator_logits": float((l_card - l_cpu).abs().max())}
+    out = report.setdefault("variants", {}).setdefault(name, {})
+    out.update({"launches_per_call": got, "embed_detect_ms_batch64": ms_ed,
+                "locate_ms_batch64": ms_loc, "vs_cpu_max_abs_dev": dev})
+    print(f"10 {name} (conf/base.yml width, seed 0): launches per call {got} (the JAX "
+          f"gate's); embed+detect batch {BATCH} x 1 s f32 {ms_ed:.3f} ms "
+          f"({BATCH / (ms_ed / 1e3):.1f} clips/s), locate {ms_loc:.3f} ms; card vs CPU "
+          f"on {r} rows: max |dev| " + ", ".join(f"{k} {v:.2e}" for k, v in dev.items())
+          + f" (limit {VARIANT_TOL:.0e}) [{card_line()}]")
+    bad = {k: v for k, v in dev.items() if not v <= VARIANT_TOL}
+    if bad:
+        raise AssertionError(f"{name} card vs CPU: {bad}")
+    # the step starts with its zero-init gates and norm biases moved off
+    # zero (tests/variants.py move_off_zero: at init the wide_skips
+    # residual is under the audio's f32 resolution, grouped's is zero), and
+    # wide_skips' residual raised to audio scale
+    from tests.variants import move_off_zero
+
+    def prepare(models):
+        move_off_zero(models)
+        if name == "wide_skips":
+            with torch.no_grad():
+                models.generator.decoder.conv_out.conv.g.mul_(WIDE_SKIPS_OUT_GAIN)
+
+    n_step = check_train_step(torch, rc, report, label=f"variant_{name}_train_step",
+                              cfg=cfg, chains=gen + det + loc, spread=VARIANT_SPREAD,
+                              scalar_spread=True, prepare=prepare,
+                              leaf_floor=VARIANT_LEAF_FLOOR,
+                              scalar_limits=VARIANT_LOSS_TOL.get(name))
+    return n_ed, n_loc, n_step, kernel_err
+
+
+def time_variant_step(torch, report, name):
+    """Phase 10 (iv): ms per batch-32 x 1 s step of variant ``name`` with
+    remat (CUDA events, median of the steps after 2 warm-up), and the peak
+    memory over them."""
+    import dataclasses
+
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.train.state import create_train_state
+
+    cfg = dataclasses.replace(_variant_cfg(name), batch_size=VARIANT_STEP_BATCH)
+    bank = EffectBank.default_train_bank()
+    state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                               torch.device("cuda"))
+    batches = [train_batch(cfg, bank, VARIANT_STEP_BATCH, s)
+               for s in range(VARIANT_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_train_step(torch, state, cfg, bank, batch, "cuda")
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sorted(times[2:])[len(times[2:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report.setdefault("variants", {}).setdefault(name, {}).update(
+        {"train_ms_per_step_batch32_remat": ms, "train_step_ms_all": times,
+         "train_peak_gib": peak})
+    print(f"10.iv {name} train step, batch {VARIANT_STEP_BATCH} x 1 s, remat on: "
+          f"{ms:.3f} ms per step (median of steps 2-{VARIANT_STEPS - 1}; all "
+          + ", ".join(f"{t:.1f}" for t in times) + f"), peak {peak:.2f} GiB "
+          f"[{card_line()}]")
+
+
+def check_native_ingest(torch, rc, report):
+    """Phase 10 (v): the native WAV ingest. The extension builds here with
+    g++ and the folder dataset uses it; every native row of the script's
+    mixed folder (16-bit, 24-bit and stereo WAVs at 16 kHz, one 22.05 kHz
+    WAV, one FLAC, one short WAV) is a contiguous slice of the Python
+    decode of its file within NATIVE_TOL, and a corrupt WAV, in a direct
+    load_crop_batch call, gives a zero row, rate 0 and the decoder's error;
+    ms per batch-32 x 1 s crop batch, native against the Python path (with
+    and without its decode cache), on NATIVE_FILES 16-bit WAVs of 10 s;
+    the training CLI for NATIVE_CLI_STEPS steps on that folder, with its
+    host share. Returns the CLI's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tests.audio_files import SR, ingest_folder, wav16
+    from waveverify_torch import native
+    from waveverify_torch.api.audio_io import load_audio
+    from waveverify_torch.train.data import AudioFolderDataset
+
+    t0 = time.perf_counter()
+    wavio = native.get_wavio()
+    build_s = time.perf_counter() - t0
+    if wavio is None:
+        raise AssertionError("native ingest: the extension did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = ingest_folder(Path(tmp) / "mixed", n=3 * CLIP)
+        ds = AudioFolderDataset([str(root)], 1.0, SR, seed=0)
+        batch = ds.batch(NATIVE_BATCH)
+        if not ds.use_native or batch.shape != (NATIVE_BATCH, CLIP):
+            raise AssertionError("native ingest: the dataset did not take the native path")
+        wavs = [p for p in sorted(root.iterdir()) if p.suffix == ".wav"]
+        out, srs, _ = wavio.load_crop_batch([str(p) for p in wavs], CLIP, 5)
+        worst, rows = 0.0, 0
+        for row, sr, path in zip(out, srs, wavs):
+            if sr != SR:
+                continue
+            x, _ = load_audio(path, SR)
+            if len(x) <= CLIP:
+                dev = float(np.abs(row[:len(x)] - x).max())
+                if row[len(x):].any():
+                    raise AssertionError(f"native ingest {path.name}: padding not zero")
+            else:
+                starts = np.nonzero(np.abs(x[:len(x) - CLIP + 1] - row[0]) <= NATIVE_TOL)[0]
+                devs = [float(np.abs(x[s:s + CLIP] - row).max()) for s in starts]
+                dev = min(devs, default=np.inf)
+            worst, rows = max(worst, dev), rows + 1
+            if not dev <= NATIVE_TOL:
+                raise AssertionError(f"native ingest {path.name}: no slice of the "
+                                     f"Python decode within {NATIVE_TOL} ({dev})")
+        bad = Path(tmp) / "corrupt.wav"
+        bad.write_bytes(b"RIFF" + bytes(20))
+        c_out, c_srs, c_err = wavio.load_crop_batch([str(bad), str(wavs[0])], CLIP, 1)
+        if c_srs[0] != 0 or c_out[0].any() or not c_err or c_srs[1] != SR:
+            raise AssertionError(f"native ingest, corrupt file: rate {c_srs[0]}, "
+                                 f"error {c_err!r}")
+        speech = Path(tmp) / "speech"
+        speech.mkdir()
+        for i in range(NATIVE_FILES):
+            (speech / f"s{i:02d}.wav").write_bytes(wav16(10 * CLIP, 100 + i))
+        times = {}
+        for label, kw in (("native", {}), ("python", {"use_native": False}),
+                          ("python_no_cache", {"use_native": False,
+                                               "cache_audio": False})):
+            dsx = AudioFolderDataset([str(speech)], 1.0, SR, seed=1, **kw)
+            dsx.batch(NATIVE_BATCH)  # warm: the build, the cache
+            t0 = time.perf_counter()
+            for _ in range(5):
+                dsx.batch(NATIVE_BATCH)
+            times[label] = (time.perf_counter() - t0) / 5 * 1e3
+        per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+        lines, launches, wall = _cli_run(torch, rc, [
+            "--max-steps", str(NATIVE_CLI_STEPS), "--train-folders", str(speech),
+            "--log-every", "1", "--no-samples"] + SHORT_VAL, Path(tmp) / "run")
+    expected = NATIVE_CLI_STEPS * per_step + _val_launches(rc, 8)
+    ms, host = _per_step_times(lines, 1)
+    report["native_ingest"] = {
+        "build_s": build_s, "rows_checked": rows, "max_row_dev": worst,
+        "corrupt_error": c_err, "ms_per_batch32": times, "cpu_count": os.cpu_count(),
+        "cli": {"launches": launches, "expected_launches": expected, "wall_s": wall,
+                "ms_per_step": ms, "host_share": host}}
+    print(f"10.v native ingest: built in {build_s:.2f} s ({native.library_path().name}); "
+          f"the dataset took the native path; {rows} native rows each a slice of the "
+          f"Python decode, max |dev| {worst:.2e} (limit {NATIVE_TOL:.0e}); corrupt file: "
+          f"rate 0, {c_err!r}; batch {NATIVE_BATCH} x 1 s from {NATIVE_FILES} WAVs of "
+          "10 s: " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+          + f" ({os.cpu_count()} CPUs); train CLI on the folder, {NATIVE_CLI_STEPS} "
+          f"steps + 1 validation in {wall:.1f} s: {launches} launches (expected "
+          f"{expected}), {ms:.3f} ms per step, host share {host:.4f} [{card_line()}]")
+    _finite(lines, "native ingest CLI")
+    if len([r for r in lines if "loss" in r]) != NATIVE_CLI_STEPS or launches != expected:
+        raise AssertionError(f"native ingest CLI: {launches} launches, expected {expected}")
+    return launches
 
 
 def main() -> int:
@@ -2602,6 +2963,18 @@ def main() -> int:
     path_launches["scan_cli"] = check_scan_cli(torch, rc, report)
     path_launches["profile_cli"] = check_profile_cli(torch, rc, report, k1_log)
     check_transforms(torch, report)
+    # 10. the option variants and the native ingest
+    variant_errs = []
+    for name in ("wide_skips", "grouped", "kernel_alpha"):
+        n_ed, n_loc, n_step, err = check_variant(torch, rc, report, name)
+        path_launches[f"variant_{name}"] = n_ed + n_loc + n_step
+        if err is not None:
+            variant_errs.append(err)
+        if name == "wide_skips":
+            time_variant_step(torch, report, name)
+    if not path_launches["variant_kernel_alpha"]:
+        raise AssertionError("kernel_alpha launched no kernel")
+    path_launches["native_cli"] = check_native_ingest(torch, rc, report)
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 
@@ -2611,7 +2984,7 @@ def main() -> int:
         "source": "waveverify_torch/csrc/resblock_chain.cu",
         "replaces": "waveverify_tpu/ops/pallas_kernels.py:354",
         "launches": sum(path_launches.values()),
-        "max_abs_err": tot["err"],
+        "max_abs_err": max([tot["err"]] + variant_errs),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": bound * 1e3,

@@ -112,7 +112,10 @@ def test_folder_of_flac_and_wav_gives_jax_crops(tmp_path):
                 modes=("verbatim",), chan_mode="mid_side")
     _write_wav(tmp_path / "c.wav", _pcm(9000, 12), sr=8000)
     _write_wav(tmp_path / "d.wav", _pcm(20000, 13))
-    ours = data.AudioFolderDataset([str(tmp_path)], 0.25, 16000, seed=4)
+    # the Python path in both (tests/test_torch_native.py holds the native
+    # default to JAX's)
+    ours = data.AudioFolderDataset([str(tmp_path)], 0.25, 16000, seed=4,
+                                   use_native=False)
     ref = jdata.AudioFolderDataset([str(tmp_path)], 0.25, 16000, seed=4,
                                    use_native=False)
     assert [p.name for p in ours.files] == [p.name for p in ref.files]

@@ -208,7 +208,9 @@ def test_folder_crops_match_jax(tmp_path):
     for i, n in enumerate((3000, 9000, 12000)):
         effects._write_wav(str(tmp_path / f"c{i}.wav"),
                            (rng.randn(n) * 0.1).astype(np.float32), SR)
-    a = data.AudioFolderDataset([str(tmp_path)], 0.25, SR, seed=4)
+    # the Python path in both (tests/test_torch_native.py holds the native
+    # default to JAX's)
+    a = data.AudioFolderDataset([str(tmp_path)], 0.25, SR, seed=4, use_native=False)
     b = jdata.AudioFolderDataset([str(tmp_path)], 0.25, SR, seed=4, use_native=False)
     assert len(a) == len(b) == 3
     np.testing.assert_array_equal(a.batch(5), b.batch(5))

@@ -134,6 +134,18 @@ ms = train_steps(state, tcfg, scan, torch.stack([audio, audio]),
 assert ms["loss"].shape == (2,) and bool(torch.isfinite(ms["loss"]).all())
 check_finite(ms, 1)
 assert state.step == 3 and float(ms["adv/disc_loss"][1]) == 0.0
+# the native ingest, and the option variants of tests/variants.py
+import waveverify_torch.native
+from tests import variants
+from waveverify_torch.modules.conv import init_params
+assert waveverify_torch.native.get_wavio() is not None
+for name in variants.VARIANTS:
+    vm = WatermarkModels(variants.apply(cfg, name))
+    init_params(vm, torch.Generator().manual_seed(0))
+    w, p = embed_detect(vm, audio, msg)
+    loc = locate_probs(vm, audio)
+    for out in (w, p, loc):
+        assert bool(torch.isfinite(out).all()), name
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

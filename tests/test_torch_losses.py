@@ -190,3 +190,28 @@ def test_generator_loss_and_gp_on_a_toy_critic():
                               alpha=torch.from_numpy(alpha))
     jd = jl.discriminator_loss(ja, jnp.asarray(x), jnp.asarray(y), key=key)
     _close(d, jd, rtol=1e-5)
+
+
+@pytest.mark.parametrize("loss", ["l1", "stft", "mel"])
+def test_l1_subgradient_at_a_tie_matches_jax(loss):
+    """Where the generator's output is exactly zero (``w == audio``) every
+    L1 term sits at |0|: the port takes JAX's derivative there (1; the
+    derivative of ``torch.abs`` at 0 is 0), so the gradient with respect
+    to the residual is JAX's."""
+    a = _rand(2, 3200, seed=7, scale=0.1)
+    fns = {"l1": (jl.l1_loss, tl.l1_loss),
+           "stft": (lambda w, y: jl.multi_scale_stft_loss(w, y, window_lengths=(256,)),
+                    lambda w, y: tl.multi_scale_stft_loss(w, y, window_lengths=(256,))),
+           "mel": (lambda w, y: jl.mel_spectrogram_loss(w, y, n_mels=(5, 10),
+                                                        window_lengths=(128, 256)),
+                   lambda w, y: tl.mel_spectrogram_loss(w, y, n_mels=(5, 10),
+                                                        window_lengths=(128, 256)))}
+    jf, tf = fns[loss]
+    ref = jax.grad(lambda r: jf(jnp.asarray(a) + r, jnp.asarray(a)))(
+        jnp.zeros(a.shape, jnp.float32))
+    r = torch.zeros(a.shape, requires_grad=True)
+    tf(torch.from_numpy(a) + r, torch.from_numpy(a)).backward()
+    assert float(np.abs(np.asarray(ref)).sum()) > 0
+    # the log-STFT term's derivative is O(1) per sample (1 / |X| at the
+    # quiet bins), so its f32 summation order shows at 1e-3
+    _close(r.grad, ref, rtol=1e-4, atol=1e-3 if loss == "stft" else 1e-6)

@@ -237,7 +237,15 @@ def test_encoder_carriers_are_fixed_buffers():
 
 
 def test_unported_options_raise():
+    """What neither package runs still raises: a decoder whose transposed
+    convs carry spectral norm (the JAX package refuses it there too), an
+    unknown skip type or activation. The options both packages run build
+    (tests/test_torch_seanet_options.py holds them to JAX)."""
     with pytest.raises(NotImplementedError):
-        tseanet.SEANetEncoder(skip="1x1")
-    with pytest.raises(NotImplementedError):
-        tseanet.SEANetDecoder(pad_mode="reflect")
+        tseanet.SEANetDecoder(norm="spectral_norm")
+    with pytest.raises(ValueError):
+        tseanet.SEANetEncoder(skip="dense")
+    with pytest.raises(ValueError):
+        tseanet.SEANetEncoder(activation="Swish")
+    tseanet.SEANetEncoder(skip="1x1")
+    tseanet.SEANetDecoder(pad_mode="reflect")

@@ -16,6 +16,13 @@ math. Layouts: torch Conv1d ``(Cout, Cin/g, K)`` -> WIO ``(K, Cin/g,
 Cout)``; ConvTranspose1d kept; Conv2d -> HWIO; Linear ``(out, in)`` ->
 ``(in, out)``.
 
+The SEANet options take their network's ``norm`` and ``act_all`` from the
+config (the JAX package's converter assumes weight norm and no
+``act_all``): an ``act_all`` block's convs sit at ``block.{4k+1}`` /
+``block.{4k+3}``; ``shortcut``, ``skip_scale``, ``res_scale_param``,
+``spec.weight`` and ``scale_param`` keep their names; see
+:func:`_norm_conv` for each norm's leaves.
+
 Orbax directories are not read here (that needs JAX); the JAX package's
 ``save_weights_npz`` makes an ``.npz`` the port reads.
 """
@@ -108,10 +115,24 @@ def fuse_parametrizations(sd: StateDict) -> StateDict:
 # ---------------------------------------------------------------------------
 
 
-def _norm_conv(sd: StateDict, prefix: str, transposed: bool = False
-               ) -> Dict[str, Array]:
-    """Fused torch conv weight -> NormConv{1d,Transpose1d} (v, g[, b])."""
-    w = sd[f"{prefix}.weight"]
+def _norm_conv(sd: StateDict, prefix: str, transposed: bool = False,
+               norm: str = "weight_norm") -> Dict[str, Array]:
+    """A torch conv at ``prefix`` (its inner ``Conv`` module) -> the leaves
+    of a NormConv{1d,Transpose1d,2d} under ``norm``:
+
+    - weight_norm: ``v = W``, ``g = ||W||``;
+    - weight_standardization: ``v = W``, ``g = sqrt(var(W) * fan_in)`` in
+      the JAX shape (a standardized W is its own standardization up to the
+      gain, whose sign the standardization of W carries);
+    - spectral_norm: ``v`` from torch's un-removed ``weight_orig`` when the
+      state dict has it, else ``W`` (whose spectral norm is one);
+    - none, layer_norm, time_group_norm: ``v = W``, and the norm module's
+      ``weight`` / ``bias`` (beside the conv, ``<module>.norm``) as the flax
+      norm's ``scale`` / ``bias``."""
+    key = f"{prefix}.weight"
+    if norm == "spectral_norm" and f"{prefix}.weight_orig" in sd:
+        key = f"{prefix}.weight_orig"
+    w = sd[key]
     if transposed:
         v = w  # (Cin, Cout/g, K) — our transposed layout matches torch
         axes = tuple(range(1, v.ndim))
@@ -121,15 +142,29 @@ def _norm_conv(sd: StateDict, prefix: str, transposed: bool = False
     else:
         v = np.transpose(w, (2, 1, 0))  # -> WIO
         axes = (0, 1)
-    params = {
-        "v": np.ascontiguousarray(v),
-        "g": np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes)).astype(
-            np.float32
-        ),
-    }
+    params = {"v": np.ascontiguousarray(v)}
+    v64 = v.astype(np.float64)
+    if norm == "weight_norm":
+        params["g"] = np.sqrt((v64 ** 2).sum(axis=axes)).astype(np.float32)
+    elif norm == "weight_standardization":
+        fan_in = int(np.prod([v.shape[a] for a in axes]))
+        params["g"] = np.sqrt(v64.var(axis=axes, keepdims=True) * fan_in
+                              ).astype(np.float32)
     if f"{prefix}.bias" in sd:
         params["b"] = sd[f"{prefix}.bias"]
+    norm_prefix = prefix.rsplit(".", 1)[0] + ".norm"
+    if norm in ("layer_norm", "time_group_norm"):
+        leaves = {"scale": sd[f"{norm_prefix}.weight"],
+                  "bias": sd[f"{norm_prefix}.bias"]}
+        params["norm"] = ({"LayerNorm_0": leaves} if norm == "layer_norm"
+                          else leaves)
     return params
+
+
+def _has_conv(sd: StateDict, prefix: str) -> bool:
+    """Whether a conv sits at ``prefix`` (a spectral-norm conv keeps its
+    kernel as ``weight_orig``)."""
+    return f"{prefix}.weight" in sd or f"{prefix}.weight_orig" in sd
 
 
 def _plain_conv(sd: StateDict, prefix: str, transposed: bool = False
@@ -154,63 +189,74 @@ def _dense(sd: StateDict, prefix: str) -> Dict[str, Array]:
 # ---------------------------------------------------------------------------
 
 
-def _convert_resblock(sd: StateDict, prefix: str, act_all: bool = False
-                      ) -> Dict[str, Any]:
+def _convert_resblock(sd: StateDict, prefix: str, act_all: bool = False,
+                      norm: str = "weight_norm") -> Dict[str, Any]:
     per_k = 4 if act_all else 3
     params: Dict[str, Any] = {}
     k = 0
-    while f"{prefix}.block.{k * per_k + 1}.conv.conv.weight" in sd:
+    while _has_conv(sd, f"{prefix}.block.{k * per_k + 1}.conv.conv"):
         base = k * per_k
         params[f"block_{k}_pw"] = {
-            "conv": _norm_conv(sd, f"{prefix}.block.{base + 1}.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.block.{base + 1}.conv.conv",
+                               norm=norm)
         }
         dw_off = 3 if act_all else 2
         params[f"block_{k}_dw"] = {
-            "conv": _norm_conv(sd, f"{prefix}.block.{base + dw_off}.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.block.{base + dw_off}.conv.conv",
+                               norm=norm)
         }
         k += 1
     if f"{prefix}.res_scale_param" in sd:
         params["res_scale_param"] = sd[f"{prefix}.res_scale_param"]
-    if f"{prefix}.shortcut.conv.conv.weight" in sd:
+    if _has_conv(sd, f"{prefix}.shortcut.conv.conv"):
         params["shortcut"] = {
-            "conv": _norm_conv(sd, f"{prefix}.shortcut.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.shortcut.conv.conv", norm=norm)
         }
+    if f"{prefix}.skip_scale" in sd:  # the scale / exp_scale skips' gain
+        params["skip_scale"] = sd[f"{prefix}.skip_scale"]
     return params
 
 
-def _convert_spec_block(sd: StateDict, prefix: str) -> Dict[str, Any]:
+def _convert_spec_block(sd: StateDict, prefix: str,
+                        norm: str = "weight_norm") -> Dict[str, Any]:
     params: Dict[str, Any] = {}
     if f"{prefix}.spec.weight" in sd:  # learnable CausalSTFT basis
         params["stft"] = {
             "weight": np.transpose(sd[f"{prefix}.spec.weight"], (2, 1, 0))
         }
-    if f"{prefix}.layer.conv.conv.weight" in sd:
-        params["proj"] = {"conv": _norm_conv(sd, f"{prefix}.layer.conv.conv")}
+    if _has_conv(sd, f"{prefix}.layer.conv.conv"):
+        params["proj"] = {"conv": _norm_conv(sd, f"{prefix}.layer.conv.conv",
+                                             norm=norm)}
     if f"{prefix}.scale_param" in sd:
         params["scale_param"] = sd[f"{prefix}.scale_param"]
     return params
 
 
-def _convert_encoder(sd: StateDict, prefix: str = "encoder") -> Dict[str, Any]:
+def _convert_encoder(sd: StateDict, prefix: str = "encoder",
+                     norm: str = "weight_norm", act_all: bool = False
+                     ) -> Dict[str, Any]:
     enc: Dict[str, Any] = {}
-    enc["conv_pre"] = {"conv": _norm_conv(sd, f"{prefix}.conv_pre.1.conv.conv")}
+    enc["conv_pre"] = {"conv": _norm_conv(sd, f"{prefix}.conv_pre.1.conv.conv",
+                                          norm=norm)}
 
     i = 0
-    while f"{prefix}.downsample.{i}.2.conv.conv.weight" in sd:
+    while _has_conv(sd, f"{prefix}.downsample.{i}.2.conv.conv"):
         j = 0
-        while f"{prefix}.blocks.{i}.{j}.block.1.conv.conv.weight" in sd:
+        while _has_conv(sd, f"{prefix}.blocks.{i}.{j}.block.1.conv.conv"):
             enc[f"block_{i}_{j}"] = _convert_resblock(
-                sd, f"{prefix}.blocks.{i}.{j}"
+                sd, f"{prefix}.blocks.{i}.{j}", act_all, norm
             )
             j += 1
-        spec = _convert_spec_block(sd, f"{prefix}.spec_blocks.{i}")
+        spec = _convert_spec_block(sd, f"{prefix}.spec_blocks.{i}", norm)
         if spec:
             enc[f"spec_block_{i}"] = spec
         enc[f"down_{i}_expand"] = {
-            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.2.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.2.conv.conv",
+                               norm=norm)
         }
         enc[f"down_{i}_dw"] = {
-            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.3.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.downsample.{i}.3.conv.conv",
+                               norm=norm)
         }
         b = 0
         while f"{prefix}.film_layers.{i}.{b}.gamma_layer.weight" in sd:
@@ -221,11 +267,12 @@ def _convert_encoder(sd: StateDict, prefix: str = "encoder") -> Dict[str, Any]:
             b += 1
         i += 1
 
-    spec_post = _convert_spec_block(sd, f"{prefix}.spec_post")
+    spec_post = _convert_spec_block(sd, f"{prefix}.spec_post", norm)
     if spec_post:
         enc["spec_post"] = spec_post
-    enc["post_dw"] = {"conv": _norm_conv(sd, f"{prefix}.conv_post.1.conv.conv")}
-    post = _norm_conv(sd, f"{prefix}.conv_post.2.conv.conv")
+    enc["post_dw"] = {"conv": _norm_conv(sd, f"{prefix}.conv_post.1.conv.conv",
+                                         norm=norm)}
+    post = _norm_conv(sd, f"{prefix}.conv_post.2.conv.conv", norm=norm)
     post_b = post.pop("b", None)
     enc["post_proj"] = {"conv": {"conv": post}}
     if post_b is not None:
@@ -248,43 +295,53 @@ def _convert_encoder(sd: StateDict, prefix: str = "encoder") -> Dict[str, Any]:
 
 def _convert_decoder(sd: StateDict, cfg: TrainConfig,
                      prefix: str = "decoder") -> Dict[str, Any]:
-    n_scales = len(cfg.generator.strides)
-    n_res = cfg.generator.n_residual_dec
+    g = cfg.generator
+    n_scales = len(g.strides)
+    n_res = g.n_residual_dec
+    norm = g.norm
     dec: Dict[str, Any] = {}
-    dec["conv_in"] = {"conv": _norm_conv(sd, f"{prefix}.model.0.conv.conv")}
-    dec["conv_in_dw"] = {"conv": _norm_conv(sd, f"{prefix}.model.1.conv.conv")}
+    dec["conv_in"] = {"conv": _norm_conv(sd, f"{prefix}.model.0.conv.conv",
+                                         norm=norm)}
+    dec["conv_in_dw"] = {"conv": _norm_conv(sd, f"{prefix}.model.1.conv.conv",
+                                            norm=norm)}
     idx = 2
     for i in range(n_scales):
         dec[f"up_{i}_dw"] = {
             "convtr": _norm_conv(
-                sd, f"{prefix}.model.{idx + 2}.convtr.convtr", transposed=True
-            )
+                sd, f"{prefix}.model.{idx + 2}.convtr.convtr", transposed=True,
+                norm=norm)
         }
         dec[f"up_{i}_proj"] = {
-            "conv": _norm_conv(sd, f"{prefix}.model.{idx + 3}.conv.conv")
+            "conv": _norm_conv(sd, f"{prefix}.model.{idx + 3}.conv.conv",
+                               norm=norm)
         }
         for j in range(n_res):
             dec[f"block_{i}_{j}"] = _convert_resblock(
-                sd, f"{prefix}.model.{idx + 4 + j}"
+                sd, f"{prefix}.model.{idx + 4 + j}", g.act_all, norm
             )
         idx += 4 + n_res
-    dec["conv_out"] = {"conv": _norm_conv(sd, f"{prefix}.model.{idx + 2}.conv.conv")}
+    dec["conv_out"] = {"conv": _norm_conv(sd, f"{prefix}.model.{idx + 2}.conv.conv",
+                                          norm=norm)}
     return dec
 
 
 def convert_generator(sd: StateDict, cfg: TrainConfig) -> Dict[str, Any]:
     return {
-        "encoder": _convert_encoder(sd, "encoder"),
+        "encoder": _convert_encoder(sd, "encoder", cfg.generator.norm,
+                                    cfg.generator.act_all),
         "decoder": _convert_decoder(sd, cfg, "decoder"),
     }
 
 
-def convert_detector_like(sd: StateDict) -> Dict[str, Any]:
+def convert_detector_like(sd: StateDict, net_cfg=None) -> Dict[str, Any]:
     """Detector and Locator share the structure: encoder + plain
     ConvTranspose1d head + 1x1 conv (reference model/detector.py:178-218,
-    model/locator.py:174-183)."""
+    model/locator.py:174-183). ``net_cfg`` (the network's config section)
+    gives the encoder's norm and ``act_all``."""
+    norm = net_cfg.norm if net_cfg is not None else "weight_norm"
+    act_all = net_cfg.act_all if net_cfg is not None else False
     return {
-        "encoder": _convert_encoder(sd, "encoder"),
+        "encoder": _convert_encoder(sd, "encoder", norm, act_all),
         "reverse_convolution": _plain_conv(
             sd, "reverse_convolution", transposed=True
         ),
@@ -311,8 +368,8 @@ def convert_torch_checkpoint(path: Union[str, Path],
         raise ValueError(f"checkpoint {path} lacks model(s): {sorted(missing)}")
     wm_params = {
         "generator": convert_generator(sds["generator"], cfg),
-        "detector": convert_detector_like(sds["detector"]),
-        "locator": convert_detector_like(sds["locator"]),
+        "detector": convert_detector_like(sds["detector"], cfg.detector),
+        "locator": convert_detector_like(sds["locator"], cfg.locator),
     }
     if validate:
         wm_params = _conform_tree(target_structure(cfg, models), wm_params)

@@ -29,8 +29,15 @@ from waveverify_torch.ops.dsp import stft
 DiscApply = Callable[[torch.Tensor], List[List[torch.Tensor]]]
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with the JAX package's derivative at 0, which is 1
+    (``torch.abs`` has 0): at an exact tie, as a generator whose output is
+    exactly zero makes (``w == audio``), the step then equals JAX's."""
+    return torch.where(x >= 0, x, -x)
+
+
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(x - y))
+    return torch.mean(_abs(x - y))
 
 
 def l2_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -195,7 +202,7 @@ def generator_loss(disc_apply: DiscApply, fake: torch.Tensor,
     loss_feat = fake.new_zeros(())
     for f_maps, r_maps in zip(d_fake, d_real):
         for fm, rm in zip(f_maps[:-1], r_maps[:-1]):
-            loss_feat = loss_feat + torch.mean(torch.abs(fm - rm))
+            loss_feat = loss_feat + torch.mean(_abs(fm - rm))
     return loss_g, loss_feat
 
 

@@ -13,7 +13,11 @@ from waveverify_torch.modules.seanet import SEANetDecoder, SEANetEncoder
 
 
 class Generator(nn.Module):
-    """audio ``[B, 1, T]``, msg ``[B, nbits]`` -> residual ``[B, 1, T]``."""
+    """audio ``[B, 1, T]``, msg ``[B, nbits]`` -> residual ``[B, 1, T]``.
+
+    ``spec_learnable_effective`` gives the encoder's spec blocks a trained
+    STFT basis (``stft/weight``); ``spec_learnable`` alone does nothing, as
+    in the reference and the JAX package."""
 
     def __init__(self, config: GeneratorConfig = GeneratorConfig()):
         super().__init__()
@@ -32,7 +36,8 @@ class Generator(nn.Module):
             msg_dimension=g.msg_dimension, n_filters=g.channels_enc,
             n_fft_base=g.n_fft_base, n_residual_layers=g.n_residual_enc,
             l2norm=g.encoder_l2norm, spec=g.spec,
-            spec_compression=g.spec_compression, res_scale=g.res_scale_enc,
+            spec_compression=g.spec_compression,
+            spec_learnable=g.spec_learnable_effective, res_scale=g.res_scale_enc,
             embedding_dim=g.embedding_dim, embedding_layers=g.embedding_layers,
             freq_bands=g.freq_bands, msg_mode=g.msg_mode,
             msg_carrier_gain=g.msg_carrier_gain,

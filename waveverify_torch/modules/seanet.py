@@ -6,8 +6,12 @@ Counterpart of ``waveverify_tpu/modules/seanet.py``; activations are
 checkpoint maps onto the modules by path (:mod:`waveverify_torch.weights`).
 
 Runs of residual blocks go through :func:`_apply_resblock_chain`, which
-hands a whole chain to the fused kernel when its blocks have the kernel's
-shape (identity skip, causal, dilations (1, 1), a kernel size it takes).
+hands a whole chain to the fused kernel where the JAX package's gate sends
+it to its Pallas kernel (identity skip, ELU, causal, dilations (1, 1), no
+``act_all`` / ``zero_init`` / grouping, weight norm or none), its padding
+is zeros, as the kernel's causal halo is, and the kernel takes its kernel
+size and width; every other chain runs block by block in plain PyTorch,
+as JAX runs it in XLA.
 """
 
 from __future__ import annotations
@@ -37,13 +41,24 @@ DEFAULT_SPEC_STDS = (2.830, 2.837, 2.817, 2.796, 2.871)
 DEFAULT_WAV_STD = 0.1122080159
 
 
-def get_activation(name: str, alpha: float = 1.0) -> Callable:
-    """The activations the shipped configs use."""
+def get_activation(name: str, alpha: float = 1.0,
+                   negative_slope: float = 0.01) -> Callable:
+    """The torch activation names as the JAX package maps them: ELU(alpha),
+    ReLU, LeakyReLU(negative_slope), Tanh, GELU (``jax.nn.gelu``'s tanh
+    approximation) and Sigmoid."""
     if name == "ELU":
         return lambda x: F.elu(x, alpha=alpha)
+    if name == "ReLU":
+        return F.relu
+    if name == "LeakyReLU":
+        return lambda x: F.leaky_relu(x, negative_slope=negative_slope)
     if name == "Tanh":
         return torch.tanh
-    raise NotImplementedError(f"activation {name!r} is not ported")
+    if name == "GELU":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "Sigmoid":
+        return torch.sigmoid
+    raise ValueError(f"unsupported activation: {name}")
 
 
 class L2Norm(nn.Module):
@@ -59,6 +74,26 @@ class L2Norm(nn.Module):
         if self.inout_norm:
             y = y * (x.shape[1] ** 0.5)
         return y
+
+
+class Scale(nn.Module):
+    """A fixed or learnable scale over ``dim`` channels (dim 1); the
+    learnable one is the parameter ``scale``, initialised to ``value``."""
+
+    def __init__(self, dim: int = 1, value: float = 1.0, learnable: bool = True):
+        super().__init__()
+        self.value, self.learnable = value, learnable
+        if learnable:
+            self.scale = nn.Parameter(torch.empty(dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.learnable:
+            self.scale.fill_(self.value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.learnable:
+            return x * self.scale.to(x.dtype).view(1, -1, 1)
+        return x * self.value
 
 
 class FiLM(nn.Module):
@@ -110,42 +145,61 @@ def _film_carrier(nbits: int, n_sites: int) -> np.ndarray:
     return sig.astype(np.float32)
 
 
-def _check_ported(skip: str, act_all: bool, expansion: int, groups: int,
-                  zero_init: bool, pad_mode: str) -> None:
-    """The port builds the shipped configs' shape: identity-skip blocks with
-    one activation per branch and depthwise convs, no learned residual
-    gates, zero padding."""
-    got = (skip, act_all, expansion, groups, zero_init, pad_mode)
-    if got != ("identity", False, 1, -1, False, "constant"):
-        raise NotImplementedError(
-            "not ported: (skip, act_all, expansion, groups, zero_init, "
-            f"pad_mode) = {got}")
+SKIP_TYPES = ("identity", "1x1", "scale", "exp_scale", "channelwise_scale")
 
 
 class SEANetResnetBlock(nn.Module):
-    """Residual block: (act -> 1x1 -> causal depthwise k) twice, with
-    progressive pre-scaling ``(1 + idx * res_scale^2)^-0.5`` and an
-    identity skip."""
+    """Residual block: per dilation, act -> 1x1 -> (act, with ``act_all``)
+    -> k-tap grouped conv (depthwise unless ``expansion`` or ``groups`` say
+    otherwise), with progressive pre-scaling ``(1 + idx * res_scale^2)^-0.5``
+    and a skip of type ``skip``: ``identity``; ``1x1`` (the ``shortcut``
+    conv, with the block's norm and bias); ``scale``, ``exp_scale`` (through
+    ``exp``) or ``channelwise_scale``, the learned ``skip_scale`` (ones,
+    zeros, ones per channel). With ``zero_init`` the residual branch is
+    gated by ``res_scale_param`` (zeros)."""
 
     def __init__(self, dim: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 1), activation: str = "ELU",
                  alpha: float = 1.0, norm: str = "weight_norm",
                  causal: bool = True, use_bias: bool = True,
-                 res_scale: Optional[float] = None, idx: int = 0):
+                 res_scale: Optional[float] = None, idx: int = 0,
+                 skip: str = "identity", act_all: bool = False,
+                 expansion: int = 1, groups: int = -1, zero_init: bool = False,
+                 pad_mode: str = "constant"):
         super().__init__()
+        if skip not in SKIP_TYPES:
+            raise ValueError(f"unknown skip type: {skip}")
         self.kernel_size, self.dilations = kernel_size, tuple(dilations)
         self.activation, self.alpha, self.causal = activation, alpha, causal
         self.res_scale, self.idx = res_scale, idx
+        self.skip, self.act_all, self.zero_init = skip, act_all, zero_init
+        self.expansion, self.groups, self.norm = expansion, groups, norm
+        self.pad_mode = pad_mode
         self.act = get_activation(activation, alpha)
         # (key, weights) of the chain this block heads; see _chain_weights
         self._chain_cache = None
+        g = groups if groups != -1 else dim // expansion
         for i, d in enumerate(self.dilations):
-            setattr(self, f"block_{i}_pw", SConv1d(dim, dim, 1, norm=norm,
-                                                   use_bias=False,
-                                                   nonlinearity="relu"))
+            setattr(self, f"block_{i}_pw", SConv1d(
+                dim, dim, 1, norm=norm, use_bias=use_bias and act_all,
+                nonlinearity="relu"))
             setattr(self, f"block_{i}_dw", SConv1d(
-                dim, dim, kernel_size, dilation=d, groups=dim, norm=norm,
-                causal=causal, use_bias=use_bias))
+                dim, dim, kernel_size, dilation=d, groups=g, norm=norm,
+                causal=causal, use_bias=use_bias, pad_mode=pad_mode,
+                nonlinearity="relu" if act_all else "linear"))
+        if skip == "1x1":
+            self.shortcut = SConv1d(dim, dim, 1, norm=norm, use_bias=use_bias)
+        elif skip != "identity":
+            self.skip_scale = nn.Parameter(torch.empty(
+                dim if skip == "channelwise_scale" else 1))
+        if zero_init:
+            self.res_scale_param = nn.Parameter(torch.empty(1))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.skip not in ("identity", "1x1"):
+            self.skip_scale.fill_(0.0 if self.skip == "exp_scale" else 1.0)
+        if self.zero_init:
+            self.res_scale_param.zero_()
 
     @property
     def prescale(self) -> float:
@@ -154,9 +208,15 @@ class SEANetResnetBlock(nn.Module):
         return (1.0 + self.idx * self.res_scale**2) ** -0.5
 
     def fusable(self) -> bool:
-        """Whether the block has the fused kernel's shape."""
-        return (self.activation == "ELU" and self.causal
+        """Whether the JAX package's gate (``_fused_params``) sends the block
+        to its kernel and the port's kernel takes its kernel size. The
+        padding must also be zeros: the kernel's causal halo is."""
+        return (self.skip == "identity" and not self.act_all
+                and self.activation == "ELU" and not self.zero_init
+                and self.causal and self.expansion == 1 and self.groups == -1
                 and self.dilations == (1, 1)
+                and self.norm in ("weight_norm", "none")
+                and self.pad_mode == "constant"
                 and self.kernel_size in KERNEL_SIZES)
 
     def fused_params(self) -> list:
@@ -171,13 +231,27 @@ class SEANetResnetBlock(nn.Module):
             out.append((pw.weight()[:, :, 0].t(), w_dw, b))
         return out
 
+    def _shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        if self.skip == "identity":
+            return x
+        if self.skip == "1x1":
+            return self.shortcut(x)
+        scale = self.skip_scale
+        if self.skip == "exp_scale":
+            scale = torch.exp(scale)
+        return x * scale.to(x.dtype).view(1, -1, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x * self.prescale if self.res_scale is not None else x
         for i in range(len(self.dilations)):
             y = getattr(self, f"block_{i}_pw")(self.act(y))
+            if self.act_all:
+                y = self.act(y)
             y = getattr(self, f"block_{i}_dw")(y)
         scale = 1.0 if self.res_scale is None else self.res_scale
-        return y * scale + x
+        if self.zero_init:
+            return y * (scale * self.res_scale_param.to(y.dtype)) + self._shortcut(x)
+        return y * scale + self._shortcut(x)
 
 
 def _chain_weights(blocks: Sequence[SEANetResnetBlock],
@@ -224,26 +298,37 @@ def _apply_resblock_chain(blocks: Sequence[SEANetResnetBlock],
 
 
 class SpecBlock(nn.Module):
-    """Residual injection of normalised log-STFT features of the raw
-    waveform, computed at this scale's cumulative stride."""
+    """Residual injection of normalised STFT features of the raw waveform,
+    computed at this scale's cumulative stride: compressed by ``log``, by a
+    power (``spec_compression`` a number p: ``sign(y) * |y|^p``) or not at
+    all; with ``learnable`` the STFT basis is a parameter, and with
+    ``zero_init`` the injection is gated by ``scale_param`` (zeros)."""
 
     def __init__(self, spec: str, spec_compression: str, n_fft: int,
                  channels: int, stride: int, norm: str = "weight_norm",
                  mean: float = 0.0, std: float = 1.0,
-                 res_scale: Optional[float] = 1.0, inout_norm: bool = True):
+                 res_scale: Optional[float] = 1.0, inout_norm: bool = True,
+                 pad_mode: str = "constant", learnable: bool = False,
+                 zero_init: bool = False):
         super().__init__()
         if spec not in ("", "stft"):
             raise ValueError(f"unknown spec type: {spec}")
-        if spec_compression not in ("", "log"):
-            raise NotImplementedError(
-                f"spec_compression {spec_compression!r} is not ported")
         self.spec, self.spec_compression = spec, spec_compression
+        self.power = (None if spec_compression in ("", "log")
+                      else float(spec_compression))
         self.mean, self.std, self.inout_norm = mean, std, inout_norm
-        self.res_scale = res_scale
+        self.res_scale, self.zero_init = res_scale, zero_init
         if spec == "stft":
-            self.stft = CausalSTFT(n_fft, stride)
+            self.stft = CausalSTFT(n_fft, stride, pad_mode=pad_mode,
+                                   learnable=learnable)
             self.proj = SConv1d(n_fft // 2 + 1, channels, 1, norm=norm,
-                                use_bias=False)
+                                use_bias=False, pad_mode=pad_mode)
+            if zero_init:
+                self.scale_param = nn.Parameter(torch.empty(1))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.spec == "stft" and self.zero_init:
+            self.scale_param.zero_()
 
     def forward(self, x: torch.Tensor, wav: torch.Tensor) -> torch.Tensor:
         if self.spec == "":
@@ -251,10 +336,14 @@ class SpecBlock(nn.Module):
         y = self.stft(wav)
         if self.spec_compression == "log":
             y = torch.log(torch.clamp(y, min=1e-5))
+        elif self.power is not None:
+            y = torch.sign(y) * torch.pow(torch.abs(y), self.power)
         if self.inout_norm:
             y = (y - self.mean) / self.std
         y = self.proj(y)
         scale = 1.0 if self.res_scale is None else self.res_scale
+        if self.zero_init:
+            return x + y * (self.scale_param.to(y.dtype) * scale)
         return x + y * scale
 
 
@@ -307,9 +396,8 @@ class SEANetEncoder(nn.Module):
                  embedding_dim: int = 64, embedding_layers: int = 2,
                  freq_bands: int = 4, msg_mode: str = "reference",
                  msg_carrier_gain: float = 1.0, film_carrier_gain: float = 0.0,
-                 film_gamma_bias: float = 0.0):
+                 film_gamma_bias: float = 0.0, spec_learnable: bool = False):
         super().__init__()
-        _check_ported(skip, act_all, expansion, groups, zero_init, pad_mode)
         self.act = get_activation(activation, alpha)
         self.msg_dimension, self.embedding_dim = msg_dimension, embedding_dim
         self.embedding_layers, self.freq_bands = embedding_layers, freq_bands
@@ -328,8 +416,17 @@ class SEANetEncoder(nn.Module):
         self.wav_std, self.inout_norm, self.l2norm = wav_std, inout_norm, l2norm
         self.rev_ratios = list(reversed(list(ratios)))
 
-        self.conv_pre = SConv1d(channels, n_filters, kernel_size, norm=norm,
-                                causal=causal, use_bias=use_bias)
+        conv_kw = dict(norm=norm)
+        block_kw = dict(kernel_size=residual_kernel_size, activation=activation,
+                        alpha=alpha, causal=causal, use_bias=use_bias,
+                        res_scale=res_scale, skip=skip, act_all=act_all,
+                        expansion=expansion, groups=groups, zero_init=zero_init,
+                        pad_mode=pad_mode, **conv_kw)
+        spec_kw = dict(res_scale=res_scale, inout_norm=inout_norm,
+                       pad_mode=pad_mode, learnable=spec_learnable,
+                       zero_init=zero_init, **conv_kw)
+        self.conv_pre = SConv1d(channels, n_filters, kernel_size, causal=causal,
+                                use_bias=use_bias, pad_mode=pad_mode, **conv_kw)
         self.msg_in = nn.Linear(msg_dimension, embedding_dim)
         for i in range(embedding_layers):
             setattr(self, f"msg_hidden_{i}", nn.Linear(embedding_dim, embedding_dim))
@@ -339,21 +436,18 @@ class SEANetEncoder(nn.Module):
             dim = mult * n_filters
             for j in range(1, n_residual_layers + 1):
                 setattr(self, f"block_{block_idx}_{j - 1}", SEANetResnetBlock(
-                    dim, kernel_size=residual_kernel_size,
-                    dilations=(dilation_base**j, 1), activation=activation,
-                    alpha=alpha, norm=norm, causal=causal, use_bias=use_bias,
-                    res_scale=res_scale, idx=j - 1 if spec == "" else j))
+                    dim, dilations=(dilation_base**j, 1),
+                    idx=j - 1 if spec == "" else j, **block_kw))
             setattr(self, f"spec_block_{block_idx}", SpecBlock(
                 spec, spec_compression, mult * n_fft_base, dim, stride,
-                norm=norm, mean=spec_means[block_idx],
-                std=spec_stds[block_idx], res_scale=res_scale,
-                inout_norm=inout_norm))
+                mean=spec_means[block_idx], std=spec_stds[block_idx],
+                **spec_kw))
             stride *= ratio
             setattr(self, f"down_{block_idx}_expand", SConv1d(
-                dim, dim * 2, 1, norm=norm, use_bias=False, nonlinearity="relu"))
+                dim, dim * 2, 1, use_bias=False, nonlinearity="relu", **conv_kw))
             setattr(self, f"down_{block_idx}_dw", SConv1d(
                 dim * 2, dim * 2, ratio * 2, stride=ratio, groups=dim * 2,
-                norm=norm, causal=causal, use_bias=use_bias))
+                causal=causal, use_bias=use_bias, pad_mode=pad_mode, **conv_kw))
             if (dim * 2) % freq_bands:
                 raise ValueError(
                     f"channels ({dim * 2}) must be divisible by freq_bands "
@@ -364,12 +458,11 @@ class SEANetEncoder(nn.Module):
             mult *= 2
         self.spec_post = SpecBlock(
             spec, spec_compression, mult * n_fft_base, mult * n_filters, stride,
-            norm=norm, mean=spec_means[-1], std=spec_stds[-1],
-            res_scale=res_scale, inout_norm=inout_norm)
+            mean=spec_means[-1], std=spec_stds[-1], **spec_kw)
         self.post_dw = SConv1d(mult * n_filters, mult * n_filters,
                                last_kernel_size, groups=mult * n_filters,
-                               norm=norm, causal=causal, use_bias=False,
-                               nonlinearity="relu")
+                               causal=causal, use_bias=False,
+                               nonlinearity="relu", pad_mode=pad_mode, **conv_kw)
         # with l2norm the projection always has a bias (the reference would
         # dereference a missing one)
         self.post_proj = _ProjConv(mult * n_filters, dimension, norm,
@@ -455,37 +548,41 @@ class SEANetDecoder(nn.Module):
                  wav_std: float = DEFAULT_WAV_STD, zero_init: bool = False,
                  inout_norm: bool = True):
         super().__init__()
-        _check_ported(skip, act_all, expansion, groups, zero_init, pad_mode)
         self.act = get_activation(activation, alpha)
         self.ratios = list(ratios)
         self.res_scale, self.n_residual_layers = res_scale, n_residual_layers
         self.wav_std, self.inout_norm = wav_std, inout_norm
         self.final_act = (get_activation(final_activation)
                           if final_activation is not None else None)
+        conv_kw = dict(norm=norm)
+        block_kw = dict(kernel_size=residual_kernel_size, activation=activation,
+                        alpha=alpha, causal=causal, use_bias=use_bias,
+                        res_scale=res_scale, skip=skip, act_all=act_all,
+                        expansion=expansion, groups=groups, zero_init=zero_init,
+                        pad_mode=pad_mode, **conv_kw)
         mult = int(2 ** len(self.ratios))
-        self.conv_in = SConv1d(dimension, mult * n_filters, 1, norm=norm,
-                               use_bias=False)
+        self.conv_in = SConv1d(dimension, mult * n_filters, 1, use_bias=False,
+                               **conv_kw)
         self.conv_in_dw = SConv1d(mult * n_filters, mult * n_filters,
                                   kernel_size, groups=mult * n_filters,
-                                  norm=norm, causal=causal, use_bias=use_bias)
+                                  causal=causal, use_bias=use_bias,
+                                  pad_mode=pad_mode, **conv_kw)
         for i, ratio in enumerate(self.ratios):
             dim = mult * n_filters
             setattr(self, f"up_{i}_dw", SConvTranspose1d(
-                dim, dim, ratio * 2, stride=ratio, groups=dim, norm=norm,
-                causal=causal, trim_right_ratio=trim_right_ratio,
-                use_bias=False, nonlinearity="relu"))
-            setattr(self, f"up_{i}_proj", SConv1d(dim, dim // 2, 1, norm=norm,
-                                                  use_bias=use_bias))
+                dim, dim, ratio * 2, stride=ratio, groups=dim, causal=causal,
+                trim_right_ratio=trim_right_ratio, use_bias=False,
+                nonlinearity="relu", **conv_kw))
+            setattr(self, f"up_{i}_proj", SConv1d(dim, dim // 2, 1,
+                                                  use_bias=use_bias, **conv_kw))
             for j in range(n_residual_layers):
                 setattr(self, f"block_{i}_{j}", SEANetResnetBlock(
-                    dim // 2, kernel_size=residual_kernel_size,
-                    dilations=(dilation_base**j, 1), activation=activation,
-                    alpha=alpha, norm=norm, causal=causal, use_bias=use_bias,
-                    res_scale=res_scale, idx=j))
+                    dim // 2, dilations=(dilation_base**j, 1), idx=j,
+                    **block_kw))
             mult //= 2
         self.conv_out = SConv1d(n_filters, channels, last_kernel_size,
-                                norm=norm, causal=causal, use_bias=use_bias,
-                                nonlinearity="relu")
+                                causal=causal, use_bias=use_bias,
+                                nonlinearity="relu", pad_mode=pad_mode, **conv_kw)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.conv_in_dw(self.conv_in(z))

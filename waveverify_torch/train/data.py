@@ -7,9 +7,10 @@ gives the same clips in both packages: :class:`SyntheticAudioDataset`
 (random crops of the audio files under some folders, mono at 16 kHz);
 :func:`prefetch_batches` makes (audio, message) batches ahead on a
 thread.
-Files are decoded by content (WAV, FLAC natively; other containers through
-``ffmpeg``) and resampled on the host; the native C++ WAV ingest is not
-ported.
+WAV files at the target rate are decoded and cropped by the native C++
+ingest (:mod:`waveverify_torch.native`) as in the JAX package; other files
+are decoded by content (WAV, FLAC natively; other containers through
+``ffmpeg``) and resampled on the host.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import logging
 import queue
 import threading
 from pathlib import Path
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,18 +37,30 @@ AUDIO_SUFFIXES = WAV_SUFFIXES + (".flac", ".ogg", ".mp3", ".aiff", ".aif")
 class AudioFolderDataset:
     """Random fixed-duration crops from audio folders: uniform random file
     choice, uniform random offset, short files zero-padded, mono 16 kHz.
-    Files are decoded by :func:`waveverify_torch.api.audio_io.load_audio`
-    (by content, then ``scipy`` polyphase resampling to the target rate),
-    as the JAX package's ``decode_auto`` and ``resample_poly`` decode them,
-    so one ``RandomState(seed)`` gives the same crops in both packages."""
+
+    As in the JAX package, a batch takes the native path when
+    ``use_native`` (the default) and the extension builds: the B file
+    picks, then one ``randint(1 << 31)`` seed from the ``RandomState``, then
+    the C++ thread pool decodes the WAVs and crops row i at the offset its
+    ``mt19937_64`` draws from the seed and i. A row whose file is not a WAV
+    at the target rate (another rate, FLAC, a failed decode) is redone by
+    the Python path, in row order, consuming the same ``RandomState``.
+    Without the extension (no compiler) the dataset warns once and takes
+    the Python path, one row at a time: file choice, then offset. Files
+    are decoded by :func:`waveverify_torch.api.audio_io.load_audio` (by
+    content, then ``scipy`` polyphase resampling to the target rate), as
+    the JAX package's ``decode_auto`` and ``resample_poly`` decode them.
+    So one seed gives the same crops in both packages, either way."""
 
     def __init__(self, folders: Sequence[str], duration: float = 1.0,
                  sample_rate: int = DEFAULT_SAMPLE_RATE,
-                 seed: int = 0, cache_audio: bool = True):
+                 seed: int = 0, cache_audio: bool = True,
+                 use_native: bool = True):
         self.sample_rate = sample_rate
         self.crop_len = int(duration * sample_rate)
         self.rng = np.random.RandomState(seed)
         self.cache_audio = cache_audio
+        self.use_native = use_native
         self._cache: dict = {}
         self.files: List[Path] = []
         for folder in folders:
@@ -83,7 +96,38 @@ class AudioFolderDataset:
         return x[start : start + self.crop_len].astype(np.float32)
 
     def batch(self, batch_size: int) -> np.ndarray:
+        if self.use_native:
+            native = self._native_batch(batch_size)
+            if native is not None:
+                return native
         return np.stack([self.sample_crop() for _ in range(batch_size)])
+
+    def _native_batch(self, batch_size: int) -> Optional[np.ndarray]:
+        from waveverify_torch.native import get_wavio
+
+        wavio = get_wavio()
+        if wavio is None:
+            self.use_native = False
+            return None
+        picks = [self.files[self.rng.randint(len(self.files))]
+                 for _ in range(batch_size)]
+        out, srs, err = wavio.load_crop_batch(
+            [str(p) for p in picks], self.crop_len,
+            int(self.rng.randint(1 << 31)))
+        if err:
+            logger.warning("native ingest: %s", err)
+        for i, (path, sr) in enumerate(zip(picks, srs)):
+            if sr == self.sample_rate:
+                continue
+            # another rate, or a file the native decoder could not read
+            x = self._load(path)
+            if len(x) <= self.crop_len:
+                out[i] = 0.0
+                out[i, : len(x)] = x
+            else:
+                start = self.rng.randint(len(x) - self.crop_len)
+                out[i] = x[start : start + self.crop_len]
+        return out
 
 
 class SyntheticAudioDataset:

@@ -10,7 +10,13 @@ modules carry the flax names, so a path maps onto a parameter by replacing
 - transposed-conv ``v``: already ``(Cin, Cout / g, K)``;
 - 2-D conv ``v`` (the discriminator's): HWIO ``(Kh, Kw, Cin / g, Cout)`` ->
   OIHW ``(Cout, Cin / g, Kh, Kw)``;
-- Dense ``kernel (in, out)`` -> ``Linear.weight (out, in)``; ``bias`` as is.
+- Dense ``kernel (in, out)`` -> ``Linear.weight (out, in)``; ``bias`` as is;
+- a learnable STFT basis ``stft/weight``: WIO ``(n_fft, 1, 2F)`` -> ``(2F,
+  1, n_fft)``.
+
+Every other leaf (weight-standardization ``g``, the skip and residual
+scales, the norms' ``scale`` and ``bias``, a 2-D transposed conv's ``v``)
+has the same shape in both.
 
 :func:`export_params` is the inverse map (port -> flax paths and layouts),
 and :func:`write_npz` writes the ``save_weights_npz`` format, so weights
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from waveverify_torch.modules.conv import NormConv1d, NormConv2d
+from waveverify_torch.modules.conv import CausalSTFT, NormConv1d, NormConv2d
 
 
 def read_npz(path: Union[str, Path]) -> Tuple[Dict[str, np.ndarray],
@@ -61,6 +67,8 @@ def _to_torch_layout(owner: nn.Module, name: str,
         return name, np.transpose(value, (3, 2, 0, 1))
     if isinstance(owner, nn.Linear) and name == "kernel":
         return "weight", value.T
+    if isinstance(owner, CausalSTFT) and name == "weight":
+        return name, np.transpose(value, (2, 1, 0))
     return name, value
 
 
@@ -72,6 +80,8 @@ def _to_flax_layout(owner: nn.Module, name: str,
         return name, np.transpose(value, (2, 3, 1, 0))
     if isinstance(owner, nn.Linear) and name == "weight":
         return "kernel", value.T
+    if isinstance(owner, CausalSTFT) and name == "weight":
+        return name, np.transpose(value, (2, 1, 0))
     return name, value
 
 
