@@ -94,9 +94,22 @@ Phases, each fatal on failure:
      batch-32 step with remat, ms and peak memory; (v) the native ingest:
      built with g++ and used by the folder dataset, its rows slices of the
      Python decode, a corrupt file's error, ms per batch-32 crop batch
-     native vs Python, and 3 steps of the training CLI on a WAV folder.
+     native vs Python, and 3 steps of the training CLI on a WAV folder;
+ 11. data parallelism and multi-device serving on the one card (each fatal
+     on failure): (i) TrainConfig() at batch 32, 2 steps in a process group
+     of one rank over NCCL against no group, within the card's own spread,
+     with ms per step and the gradient all-reduce's ms; (ii) two ranks
+     sharing cuda:0 over gloo, one step at 2 + 2 rows against the
+     one-process step at batch 4, gradient leaf by leaf; (iii) torchrun
+     --nproc_per_node 1 -m waveverify_torch.train --num-devices 1 for 3
+     steps, and --num-devices 2 refused on one card; (iv)
+     WaveVerify.use_mesh() and use_mesh(["cuda:0", "cuda:0"]) at batch 64
+     against the unsplit call, the latter also from a server built on the
+     CPU (its replica copied to the card).
 
 With --kernel-only the run stops after phase 3 and prints no result line.
+With --ab-times TREE it only times the one-process paths of the port in
+TREE (see ab_times) and prints one JSON line.
 
 Prints the card line and the kernels JSON line before the last line, which
 is {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -2568,6 +2581,488 @@ def check_native_ingest(torch, rc, report):
     return launches
 
 
+# -- phase 11: data parallelism and multi-device serving on the one card --------
+
+DP_BATCH = 32        # (i): TrainConfig()'s batch, one rank
+DP_STEPS = 2
+DP_SHARED_BATCH = 4  # (ii): 2 + 2 rows, two ranks sharing cuda:0
+DP_CLI_STEPS = 3
+DP_PROFILE = (0, 2)  # (iii): the steps whose chain launches the trace counts
+DP_RANK_TIMEOUT = 240
+# 11 (i): the losses' and the gradient norms' largest deviation, group
+# against no group, relative to the largest, may reach this where the
+# card's own spread (no group twice) falls lower: one run on an H100 80GB
+# HBM3 (700 W) read 3.6e-07 (losses) and 7.0e-07 (gradient norms) for the
+# group against an own spread of 1.2e-07 and 1.1e-07; the CPU tests hold
+# two ranks to one process at 1e-5
+DP_SCALAR_FLOOR = 1e-5
+MESH_AUDIO_TOL = 1e-6
+
+
+def _dp_inputs(b):
+    """TrainConfig() at global batch ``b`` with the shipped bank, and step
+    0's global inputs (train_batch)."""
+    import dataclasses
+
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.effects.effects import EffectBank
+
+    cfg = dataclasses.replace(TrainConfig(), batch_size=b)
+    bank = EffectBank.default_train_bank()
+    return cfg, bank, train_batch(cfg, bank, b, 0)
+
+
+def _params(state):
+    return {n: p.detach().cpu() for n, p in state.models.named_parameters()}
+
+
+def _grads(state):
+    """The gradients the last step left, which its optimizers stepped on
+    (after the all-reduce, the clip and the gates)."""
+    return {n: p.grad.detach().cpu() for n, p in state.models.named_parameters()
+            if p.grad is not None}
+
+
+def _max_dev(x, y, keys=None):
+    """The largest |x - y| over the tensors ``keys`` (all) of two dicts,
+    relative to the largest |y| among them."""
+    keys = list(x) if keys is None else keys
+    dev = max(float((x[k].float() - y[k].float()).abs().max()) for k in keys)
+    return dev / max(max(float(y[k].float().abs().max()) for k in keys), 1e-30)
+
+
+def check_nccl_one_rank(torch, rc, report):
+    """Phase 11 (i): TrainConfig() at batch 32 with remat, DP_STEPS steps
+    from one state with the same draws, twice without a process group and
+    once in a group of one rank over NCCL (rendezvous on localhost; order:
+    none, NCCL, none): the group's step all-gathers the localization's
+    donors and all-reduces each backward's gradients and the reported
+    scalars, which over one rank copies, so the group may part from the
+    ungrouped run no further than the card parts from itself (its
+    nondeterministic backward kernels): per network, the parameters'
+    largest deviation within 4x the two ungrouped runs', and the same for
+    the losses and for the gradient norms, or within DP_SCALAR_FLOOR of
+    the largest where that is more (one draw of the card's own spread can
+    fall far below another's). ms per step of each run's last step, and
+    the gradient all-reduce alone (ms per step, its share of the step).
+    Returns the group's launches."""
+    import torch.distributed as dist
+
+    from waveverify_torch import parallel
+    from waveverify_torch.parallel.mesh import free_port
+    from waveverify_torch.train.state import create_train_state
+
+    cfg, bank, _ = _dp_inputs(DP_BATCH)
+    batches = [train_batch(cfg, bank, DP_BATCH, s) for s in range(DP_STEPS)]
+    runs = {}
+    for mode in ("none", "nccl", "none again"):
+        if mode == "nccl":
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                    world_size=1, rank=0)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                   torch.device("cuda"))
+        torch.cuda.synchronize()
+        rc.resblock_chain.launches = 0
+        metrics, ms = {}, []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            m = run_train_step(torch, state, cfg, bank, batch, "cuda")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.update({f"{k} @{i}": v.cpu() for k, v in m.items() if v.dim() == 0})
+        launches = rc.resblock_chain.launches
+        reduce_ms = None
+        if mode == "nccl":
+            wm = [p for net in ("generator", "detector", "locator")
+                  for p in getattr(state.models, net).parameters()]
+            disc = list(state.models.discriminator.parameters())
+            reduce_ms = cuda_time(torch, lambda: (parallel.all_reduce_grads(wm),
+                                                  parallel.all_reduce_grads(disc)), 10)
+            parallel.destroy()
+        runs[mode] = dict(params=_params(state), launches=launches, ms=ms,
+                          reduce_ms=reduce_ms, metrics=metrics)
+    a, g, b = runs["none"], runs["nccl"], runs["none again"]
+    groups = {f"params {net}": ("params", [n for n in a["params"]
+                                           if n.startswith(net + ".")])
+              for net in TRAIN_NETS}
+    groups["losses"] = ("metrics", [k for k in a["metrics"] if "loss" in k])
+    groups["grad norms"] = ("metrics", [k for k in a["metrics"] if "grad_norm" in k])
+    devs = {name: (_max_dev(g[kind], a[kind], keys), _max_dev(b[kind], a[kind], keys))
+            for name, (kind, keys) in groups.items()}
+    floor = {"losses": DP_SCALAR_FLOOR, "grad norms": DP_SCALAR_FLOOR}
+    bad = [name for name, (dg, own) in devs.items()
+           if not dg <= max(4 * own, floor.get(name, 0.0))]
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    share = g["reduce_ms"] / g["ms"][-1]
+    report["dp_nccl_one_rank"] = {"ms_per_step": {k: v["ms"] for k, v in runs.items()},
+                                  "allreduce_ms_per_step": g["reduce_ms"],
+                                  "allreduce_share": share, "launches": g["launches"],
+                                  "dev_group_vs_own": devs}
+    print(f"11 (i) one rank over NCCL vs no group, TrainConfig() batch {DP_BATCH} with "
+          f"remat, {DP_STEPS} steps from one state: largest deviation, group vs no group "
+          "(the card's own, no group twice): " + ", ".join(
+              f"{k} {dg:.1e} ({own:.1e})" for k, (dg, own) in devs.items())
+          + f"; ms per step (last) {a['ms'][-1]:.3f} / {b['ms'][-1]:.3f} without, "
+          f"{g['ms'][-1]:.3f} with the group; gradient all-reduce alone "
+          f"{g['reduce_ms']:.3f} ms per step ({share:.4f} of the step); "
+          f"{g['launches']} chain launches [{card_line()}]", flush=True)
+    if bad:
+        raise AssertionError(f"11 (i): the one-rank NCCL group parts from no group "
+                             f"beyond 4x the card's own spread and the floor: {bad}")
+    if {a["launches"], g["launches"], b["launches"]} != {DP_STEPS * per_step}:
+        raise AssertionError(f"11 (i): launches {a['launches']} / {g['launches']} / "
+                             f"{b['launches']}, expected {DP_STEPS * per_step}")
+    return g["launches"]
+
+
+def _dp_rank(rank, port, out):
+    """Phase 11 (ii), one of two ranks sharing cuda:0 over gloo (run in a
+    process of its own): one step of TrainConfig() on its 2 of the global
+    batch's 4 rows, the global draws cut to them; writes its parameters,
+    metrics and chain launches to ``out``."""
+    import torch
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from waveverify_torch import parallel
+    from waveverify_torch.ops import resblock_chain as rc
+    from waveverify_torch.serve import strict_f32
+    from waveverify_torch.train.state import create_train_state
+
+    rc.build()
+    strict_f32()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    cfg, bank, (audio, msg, idx, d) = _dp_inputs(DP_SHARED_BATCH)
+    per = DP_SHARED_BATCH // 2
+    lo, hi = rank * per, (rank + 1) * per
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), torch.device("cuda"))
+    rc.resblock_chain.launches = 0
+    m = run_train_step(torch, state, cfg, bank,
+                       (audio[lo:hi], msg[lo:hi], idx[lo:hi], d.rows(lo, hi)), "cuda")
+    torch.cuda.synchronize()
+    torch.save({"params": _params(state), "grads": _grads(state),
+                "launches": rc.resblock_chain.launches,
+                "metrics": {k: v.cpu() for k, v in m.items()}}, out)
+    parallel.destroy()
+
+
+_STARTED = []  # the processes of phase 11, stopped at exit if still running
+
+
+def _stop(procs):
+    """Kill each running process's session (it and what it started)."""
+    import os
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+
+
+def _popen(argv):
+    """A process of this run, in a session of its own (so that it is
+    stopped with what it started), from the checkout's root; stopped at
+    exit if it still runs."""
+    import subprocess
+
+    if not _STARTED:
+        atexit.register(_stop, _STARTED)
+    p = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    _STARTED.append(p)
+    return p
+
+
+def start_gloo_two_ranks(tmp):
+    """Start phase 11 (ii)'s two ranks; their results go under ``tmp``."""
+    from waveverify_torch.parallel.mesh import free_port
+
+    port = free_port()
+    return time.perf_counter(), [
+        _popen([sys.executable, "-c", "import chip_smoke as c; "
+                f"c._dp_rank({r}, {port}, {str(Path(tmp) / f'rank{r}.pt')!r})"])
+        for r in range(2)]
+
+
+def check_gloo_two_ranks(torch, rc, report, tmp, started):
+    """Phase 11 (ii): two ranks sharing cuda:0 over gloo (NCCL refuses two
+    ranks on one card; gloo reduces CUDA tensors through the host), one
+    step of TrainConfig() at 2 + 2 rows, against the one-process step at
+    batch 4 on the card from the same state and global draws: the losses
+    within phase 6's relative limit; the gradients the step left (those
+    its optimizers stepped on), leaf by leaf, each network's worst within
+    phase 6's TRAIN_GRAD_TOL; as a backstop each network's parameters
+    within phase 6's limit (2 lr and f32 rounding); the two ranks'
+    parameters and gradients bit for bit equal; and each rank's chain
+    launches. ``started`` is ``start_gloo_two_ranks(tmp)``. Returns both
+    ranks' launches."""
+    from waveverify_torch.train.state import create_train_state
+
+    t0, procs = started
+    logs = _wait_all(procs, DP_RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"11 (ii): rank {r} exit {p.returncode}:\n{log[-3000:]}")
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    cfg, bank, batch = _dp_inputs(DP_SHARED_BATCH)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), torch.device("cuda"))
+    one = {k: v.cpu() for k, v in run_train_step(torch, state, cfg, bank, batch,
+                                                 "cuda").items()}
+    ref, ref_grads = _params(state), _grads(state)
+    per_rank = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    same = all(set(ranks[0][kind]) == set(ranks[1][kind])
+               and all(torch.equal(v, ranks[1][kind][n]) for n, v in ranks[0][kind].items())
+               for kind in ("params", "grads"))
+    if set(ranks[0]["grads"]) != set(ref_grads) or not ref_grads:
+        raise AssertionError("11 (ii): the ranks and the one process left gradients on "
+                             f"other leaves: {set(ranks[0]['grads']) ^ set(ref_grads)}")
+    grad_dev = {}
+    for net in TRAIN_NETS:
+        devs = {n: float((ranks[0]["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in ref_grads.items() if n.startswith(net + ".")}
+        if not devs:
+            raise AssertionError(f"11 (ii): no gradient of the {net}")
+        worst_leaf = max(devs, key=devs.get)
+        grad_dev[net] = (worst_leaf, devs[worst_leaf])
+    rel = {k: abs(float(ranks[0]["metrics"][k]) - float(v)) / max(abs(float(v)), 1e-12)
+           for k, v in one.items() if v.dim() == 0}
+    worst, limit = {}, {}
+    for net in TRAIN_NETS:
+        keys = [n for n in ref if n.startswith(net + ".")]
+        worst[net] = max(float((ranks[0]["params"][n] - ref[n]).abs().max()) for n in keys)
+        p_max = max(float(ref[n].abs().max()) for n in keys)
+        limit[net] = 2 * TRAIN_LR + 2 * torch.finfo(torch.float32).eps * p_max
+    launches = [r["launches"] for r in ranks]
+    report["dp_gloo_two_ranks"] = {"rel_dev": rel, "grad_dev": grad_dev,
+                                   "max_param_dev": worst, "ranks_equal": same,
+                                   "launches": launches, "wall_s": wall}
+    print(f"11 (ii) two ranks on cuda:0 over gloo, TrainConfig() at 2 + 2 rows vs one "
+          f"process at batch {DP_SHARED_BATCH}, one step ({wall:.1f} s for the ranks): rel "
+          "dev " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + "; worst leaf's gradient rel dev " + ", ".join(
+              f"{k} {v[1]:.2e} ({v[0]}, limit {TRAIN_GRAD_TOL[k]:.0e})"
+              for k, v in grad_dev.items()) + "; max |param "
+          "dev| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (lr {TRAIN_LR}); ranks' parameters and gradients bit for bit equal: "
+          f"{same}; chain launches per "
+          f"rank {launches} [{card_line()}]", flush=True)
+    for k, v in rel.items():
+        if k in ("train/ber", "train/miou"):
+            dev = abs(float(ranks[0]["metrics"][k]) - float(one[k]))
+            if not dev <= (1 / 64 if k == "train/ber" else 1e-3):
+                raise AssertionError(f"11 (ii): {k} {dev}")
+        elif not v <= (TRAIN_NORM_TOL if k.startswith("grad_norm/") else 1e-4):
+            raise AssertionError(f"11 (ii): {k} rel dev {v}")
+    bad_grads = {net: v for net, v in grad_dev.items() if not v[1] <= TRAIN_GRAD_TOL[net]}
+    if bad_grads:
+        raise AssertionError(f"11 (ii): gradient leaves beyond TRAIN_GRAD_TOL: {bad_grads}")
+    bad = [net for net in TRAIN_NETS if not worst[net] <= limit[net]]
+    if bad or not same or launches != [per_rank, per_rank]:
+        raise AssertionError(f"11 (ii): params {bad}, ranks equal {same}, launches "
+                             f"{launches} (expected {per_rank} each)")
+    return sum(launches)
+
+
+def _wait_all(procs, timeout):
+    """Wait for every process (killing its session at ``timeout``, or when
+    one fails, since the other then waits in a collective); their output."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    _stop(procs)
+    return [p.communicate()[0] for p in procs]
+
+
+def start_dp_cli(tmp):
+    """Start phase 11 (iii)'s torchrun into ``tmp``."""
+    a, b = DP_PROFILE
+    return time.perf_counter(), _popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "waveverify_torch.train", "--num-devices",
+         "1", "--max-steps", str(DP_CLI_STEPS), "--ckpt-dir", str(tmp), "--log-every",
+         "1", "--no-samples", "--profile-steps", f"{a}:{b}"] + SHORT_VAL)
+
+
+def check_dp_cli(torch, rc, report, tmp, started, refused):
+    """Phase 11 (iii): ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m waveverify_torch.train --num-devices 1`` at
+    TrainConfig() for DP_CLI_STEPS steps with a short validation
+    (``started`` is ``start_dp_cli(tmp)``): rank 0's log and ``latest``,
+    finite losses, and the chain launches of steps DP_PROFILE counted in
+    its ``--profile-steps`` trace; and ``refused``, the process started at
+    the phase's start: ``--num-devices 2`` on the one card exits non-zero,
+    naming 2 and 1. Returns the counted launches."""
+    a, b = DP_PROFILE
+    t0, proc = started
+    log = _wait_all([proc], DP_RANK_TIMEOUT)[0]
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"11 (iii): torchrun exit {proc.returncode}:\n{log[-3000:]}")
+    lines = _log_lines(Path(tmp) / "train_log.jsonl")
+    latest = (Path(tmp) / "latest" / "state.pt").exists()
+    trace = Path(tmp) / "profile" / f"steps_{a}_{b}.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    chain = [e for e in events if e.get("cat") == "kernel"
+             and "resblock_chain" in e.get("name", "")]
+    per_step = 2 * sum(rc.launches_per_chain(c, m) for _, c, m in TRAIN_CHAINS)
+    refused_log = _wait_all([refused], DP_RANK_TIMEOUT)[0]
+    steps = [r["step"] for r in lines if "loss" in r]
+    report["dp_cli"] = {"wall_s": wall, "steps": steps, "latest": latest,
+                        "traced_launches": len(chain), "refusal_exit": refused.returncode,
+                        "refusal": refused_log.strip().splitlines()[-1:]}
+    print(f"11 (iii) torchrun --nproc_per_node 1 -m waveverify_torch.train --num-devices 1 "
+          f"at TrainConfig(), {len(steps)} steps in {wall:.1f} s: steps {steps}, latest "
+          f"{latest}, {len(chain)} chain launches in the trace of steps {a}-{b - 1}; "
+          f"--num-devices 2 exit {refused.returncode}: {report['dp_cli']['refusal']}",
+          flush=True)
+    _finite(lines, "11 (iii)")
+    if steps != list(range(DP_CLI_STEPS)) or not latest or len(chain) != (b - a) * per_step:
+        raise AssertionError(f"11 (iii): steps {steps}, latest {latest}, launches "
+                             f"{len(chain)} (expected {(b - a) * per_step})")
+    if refused.returncode == 0 or "--num-devices 2: 2 ranks need 2 CUDA devices, 1 " \
+            "visible" not in refused_log:
+        raise AssertionError(f"11 (iii): --num-devices 2 on one card:\n{refused_log[-2000:]}")
+    return len(chain)
+
+
+def check_mesh_serving(torch, rc, report, r5, audio, bits):
+    """Phase 11 (iv): WaveVerify(r5).use_mesh() over every visible card,
+    embed+detect at batch 64, bit for bit the unsplit call; then
+    use_mesh(["cuda:0", "cuda:0"]) (two shares of 32 on one card), once
+    on a server built on the card and once on one built on the CPU, whose
+    replica use_mesh copies onto the card: the detected bits identical,
+    the watermarked audio within MESH_AUDIO_TOL, the launches twice a
+    share's. ms per call (embed_batch + detect_batch, host clock to the
+    numpy results, median of 5) for each. Returns the launches."""
+    import statistics
+
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+
+    emb, det, _ = _per_call(rc)
+    plain_wv = WaveVerify(r5, device="cuda")
+    plain = plain_wv.embed_batch(audio, bits)
+    plain_bits, plain_conf = plain_wv.detect_batch(plain)
+    out, total = {}, 0
+    for name, home, devices in (("every card", "cuda", None),
+                                ("cuda:0 twice", "cuda", ["cuda:0", "cuda:0"]),
+                                ("cuda:0 twice, copied from the CPU", "cpu",
+                                 ["cuda:0", "cuda:0"])):
+        wv = WaveVerify(r5, device=home).use_mesh(devices)
+        shares = len(wv._mesh)
+        if home == "cpu" and not all(dev.type == "cuda" and models is not wv.models
+                                     for dev, models in wv._mesh):
+            raise AssertionError(f"11 (iv): {name}: the shares run on "
+                                 f"{[str(dev) for dev, _ in wv._mesh]}, not on a copy")
+        rc.resblock_chain.launches = 0
+        wm = wv.embed_batch(audio, bits)
+        d_bits, d_conf = wv.detect_batch(wm)
+        launches = rc.resblock_chain.launches
+        total += launches
+
+        def call():
+            w = wv.embed_batch(audio, bits)
+            wv.detect_batch(w)
+
+        call()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e3)
+        dev = float(np.abs(wm - plain).max())
+        out[name] = {"shares": shares, "launches": launches, "max_audio_dev": dev,
+                     "bits_equal": bool(np.array_equal(d_bits, plain_bits)),
+                     "bitwise": bool(np.array_equal(wm, plain)
+                                     and np.array_equal(d_conf, plain_conf)),
+                     "ms_per_call": statistics.median(times)}
+    report["mesh_serving"] = out
+    print(f"11 (iv) WaveVerify(r5).use_mesh at batch {len(audio)}: " + "; ".join(
+        f"{k}: {v['shares']} share(s), {v['launches']} launches, bits equal "
+        f"{v['bits_equal']}, bit for bit {v['bitwise']}, max |audio dev| "
+        f"{v['max_audio_dev']:.2e}, {v['ms_per_call']:.3f} ms per embed+detect call"
+        for k, v in out.items()) + f" [{card_line()}]", flush=True)
+    every = out["every card"]
+    if not every["bitwise"] or every["launches"] != every["shares"] * (emb + det):
+        raise AssertionError(f"11 (iv): use_mesh() over every card: {every}")
+    for name in ("cuda:0 twice", "cuda:0 twice, copied from the CPU"):
+        twice = out[name]
+        if (not twice["bits_equal"] or not twice["max_audio_dev"] <= MESH_AUDIO_TOL
+                or twice["launches"] != 2 * (emb + det)):
+            raise AssertionError(f"11 (iv): use_mesh(['cuda:0', 'cuda:0']), {name}: "
+                                 f"{twice}")
+    return total
+
+
+def ab_times(tree: Path) -> int:
+    """``--ab-times TREE``: the one-process times of the port in TREE (this
+    checkout, or another commit's tree unpacked under ``build/``), for an
+    A/B of two trees on one card (run parent, change, change, parent in
+    one call): r5 embed+detect and locate at batch 64 x 1 s f32 (CUDA
+    events, 10 calls after warm-up), the sweep at the CLI's defaults (wall
+    s of its second run) and the TrainConfig() step at batch 32 with remat
+    (CUDA events, median of 5 after 3 warm-up). Prints one JSON line."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(tree))
+    from waveverify_torch import WaveVerify
+    from waveverify_torch.config import TrainConfig
+    from waveverify_torch.effects.effects import EffectBank
+    from waveverify_torch.eval import run_sweep
+    from waveverify_torch.ops import resblock_chain as rc
+    from waveverify_torch.serve import embed_detect, locate_probs, strict_f32
+    from waveverify_torch.train.state import create_train_state
+
+    rc.build()
+    strict_f32()
+    wv = WaveVerify(ROOT / "weights" / "waveverify_demo_r5.npz", device="cuda")
+    rng = np.random.RandomState(0)
+    audio = torch.tensor((rng.randn(BATCH, CLIP) * 0.1).astype(np.float32), device="cuda")
+    bits = torch.tensor(rng.randint(0, 2, (BATCH, 16)).astype(np.float32), device="cuda")
+    out = {"tree": str(tree), "package": str(Path(sys.modules["waveverify_torch"].__file__)),
+           "embed_detect_ms": cuda_time(torch, lambda: embed_detect(wv.models, audio, bits), 10),
+           "locate_ms": cuda_time(torch, lambda: locate_probs(wv.models, audio), 10)}
+    clips = sweep_inputs()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_sweep(wv, clips, seed=0, include_codecs=True)
+        out["sweep_s"] = time.perf_counter() - t0
+    cfg = dataclasses.replace(TrainConfig(), remat=True)
+    bank = EffectBank.default_train_bank()
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), torch.device("cuda"))
+    ms = []
+    for i in range(8):
+        batch = train_batch(cfg, bank, TRAIN_BATCH, i)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        run_train_step(torch, state, cfg, bank, batch, "cuda")
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append(e0.elapsed_time(e1))
+    out["train_step_ms"] = statistics.median(ms)
+    out["train_step_ms_all"] = ms
+    out["card"] = card_line()
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2975,6 +3470,25 @@ def main() -> int:
     if not path_launches["variant_kernel_alpha"]:
         raise AssertionError("kernel_alpha launched no kernel")
     path_launches["native_cli"] = check_native_ingest(torch, rc, report)
+    # 11. data parallelism and multi-device serving on the one card; the
+    # one-card refusal of --num-devices 2 starts first and runs beside
+    t11 = time.perf_counter()
+    refused = _popen([sys.executable, "-m", "waveverify_torch.train", "--num-devices",
+                      "2", "--max-steps", "1", "--ckpt-dir",
+                      str(Path(cli_dir) / "refused")])
+    # (i) and (iv) are timed alone; (ii) and (iii), checks without times,
+    # then run side by side
+    path_launches["dp_nccl_one_rank"] = check_nccl_one_rank(torch, rc, report)
+    path_launches["mesh_serving"] = check_mesh_serving(torch, rc, report, r5, audio, bits)
+    with tempfile.TemporaryDirectory() as ranks_dir, \
+            tempfile.TemporaryDirectory() as cli_run:
+        ranks = start_gloo_two_ranks(ranks_dir)
+        cli = start_dp_cli(cli_run)
+        path_launches["dp_gloo_two_ranks"] = check_gloo_two_ranks(torch, rc, report,
+                                                                   ranks_dir, ranks)
+        path_launches["dp_cli"] = check_dp_cli(torch, rc, report, cli_run, cli, refused)
+    report["phase11_s"] = time.perf_counter() - t11
+    print(f"phase 11 in {report['phase11_s']:.1f} s")
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 
@@ -3009,4 +3523,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-times"]:
+        sys.exit(ab_times(Path(sys.argv[2]).resolve()))
     sys.exit(main())

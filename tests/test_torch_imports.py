@@ -146,6 +146,11 @@ for name in variants.VARIANTS:
     loc = locate_probs(vm, audio)
     for out in (w, p, loc):
         assert bool(torch.isfinite(out).all()), name
+# data parallelism: one process is a no-op
+import waveverify_torch.parallel
+from waveverify_torch.parallel import initialize_distributed, is_active, make_mesh
+initialize_distributed()
+assert not is_active() and make_mesh(device="cpu").size == 1
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

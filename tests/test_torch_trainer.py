@@ -27,6 +27,7 @@ from waveverify_tpu.train.loop import NbitsCurriculum as JCurriculum
 from waveverify_tpu.config import TrainConfig as JTrainConfig
 from waveverify_tpu.config import load_config as jload_config
 from waveverify_tpu.train.watermarking import WatermarkModels as JModels
+from tests.torch_ranks import TINY_YAML
 from waveverify_torch import WaveVerify
 from waveverify_torch.config import TrainConfig, load_config
 from waveverify_torch.train.__main__ import main
@@ -38,21 +39,6 @@ from waveverify_torch.weights import export_params, read_npz
 
 torch.set_num_threads(2)
 
-TINY_YAML = """
-batch_size: 4
-val_batch_size: 2
-valid_freq: 2
-sample_freq: 2
-train_duration: 0.2
-val_duration: 0.2
-Generator: {dimension: 32, channels_enc: 8, channels_dec: 12, n_residual_enc: 1,
-            n_residual_dec: 1, bias: true}
-Detector: {dimension: 32, channels_enc: 8, n_residual_enc: 1, output_dim: 8, bias: true}
-Locator: {dimension: 32, channels_enc: 8, n_residual_enc: 1, output_dim: 8, bias: true}
-Discriminator: {periods: [2], fft_sizes: [256]}
-MultiScaleSTFTLoss: {window_lengths: [256]}
-MelSpectrogramLoss: {n_mels: [5, 10], window_lengths: [128, 256]}
-"""
 
 
 def _args(tmp_path, *extra):
@@ -192,9 +178,14 @@ def test_cli_takes_every_jax_flag():
 
 
 @pytest.mark.parametrize("flag", [["--num-devices", "2"]])
-def test_unsupported_flags_raise_naming_themselves(tmp_path, flag):
-    with pytest.raises(ValueError, match=flag[0]):
-        main(_args(tmp_path, "--max-steps", "1", *flag))
+def test_unsupported_flags_raise_naming_themselves(tmp_path, flag, monkeypatch):
+    """``--num-devices`` is ported; what it refuses is more ranks than
+    cards on ``cuda`` (one card per rank under NCCL), naming the flag and
+    both counts, before it starts any rank."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=rf"{flag[0]} 2: 2 ranks need 2 CUDA "
+                       r"devices, 1 visible"):
+        main(_args(tmp_path, "--max-steps", "1", *flag, "--device", "cuda"))
 
 
 def test_split_disc_trains_as_the_monolithic_step(run, tmp_path):

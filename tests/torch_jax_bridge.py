@@ -10,25 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests.torch_ranks import SECTIONS, SMALL  # noqa: F401 (re-exported)
 from waveverify_tpu import config as jcfg
 from waveverify_torch import config as tcfg
 from waveverify_torch.effects.effects import RANDOM_EFFECTS
 from waveverify_torch.train.watermarking import Draws
 from waveverify_torch.weights import export_params
 
-SMALL = dict(dimension=32, channels_enc=8, kernel_size=5, last_kernel_size=5,
-             residual_kernel_size=5, dilation_base=1, skip="identity",
-             causal=True, encoder_l2norm=True, bias=True,
-             spec_compression="log", zero_init=False)
-SECTIONS = dict(
-    generator=("GeneratorConfig", dict(channels_dec=12, n_residual_enc=1,
-                                       n_residual_dec=1, **SMALL)),
-    detector=("DetectorConfig", dict(n_residual_enc=1, output_dim=8, **SMALL)),
-    locator=("LocatorConfig", dict(n_residual_enc=1, output_dim=8, **SMALL)),
-    discriminator=("DiscriminatorConfig", dict(periods=(2,), fft_sizes=(256,))),
-    loss=("LossConfig", dict(stft_window_lengths=(256,), mel_n_mels=(5, 10),
-                             mel_window_lengths=(128, 256))),
-)
 NETS = ("generator", "detector", "locator")
 
 

@@ -14,15 +14,18 @@ Weights come from a ``save_weights_npz`` file, a reference ``.pth`` (the
 paper's checkpoint format, converted by ``waveverify_torch.convert``), a
 checkpoint directory of the port's trainer, or random initialisation from
 a seed; the JAX trainer's orbax directories are refused with the route to
-an ``.npz``. Not ported yet: multi-card serving.
+an ``.npz``. After :meth:`WaveVerify.use_mesh`, ``embed_batch`` and
+``detect_batch`` split the batch across several devices, as the JAX
+package's do over its data mesh.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 from pathlib import Path
-from typing import Iterator, Optional, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +50,14 @@ from waveverify_torch.weights import flatten, load_params, read_npz
 logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 16000
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: a ``cuda`` without one is the current
+    card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _next_bucket(length: int, hop: int = 320, min_len: int = 4800) -> int:
@@ -132,6 +143,50 @@ class WaveVerify:
         self.models.eval().to(self.device)
         self.sample_rate = self.config.generator.sample_rate
         self.hop = self.config.generator.hop_length
+        # the devices batched serving splits over, each with its replica:
+        # the constructor's device alone until use_mesh
+        self._mesh: List[Tuple[torch.device, WatermarkModels]] = [
+            (self.device, self.models)]
+
+    # -- multi-device serving ------------------------------------------------------
+
+    def use_mesh(self, devices: Optional[Sequence[Union[str, torch.device]]] = None
+                 ) -> "WaveVerify":
+        """Split batched serving (``embed_batch`` / ``detect_batch``) across
+        ``devices``: the three networks are replicated on each (every
+        visible card when None, as the JAX package's ``use_mesh`` takes
+        every device), the batch is cut into equal shares in order, one per
+        listed device (B must divide), every share is launched before any
+        result is copied to the host, so the cards overlap, and the results
+        are gathered in order. A device listed twice runs two shares on one
+        replica. Single-clip methods stay on the constructor's device.
+        Returns self."""
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device is present; pass devices, "
+                                   "e.g. ['cpu', 'cpu']")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        own = _indexed(self.device)
+        replicas = {}
+        mesh = []
+        for d in devices:
+            dev = _indexed(resolve_device(d))
+            if dev not in replicas:
+                replicas[dev] = (self.models if dev == own
+                                 else copy.deepcopy(self.models).to(dev))
+            mesh.append((dev, replicas[dev]))
+        self._mesh = mesh
+        return self
+
+    def _shares(self, b: int, what: str) -> List[slice]:
+        """The mesh's shares of a batch of ``b`` rows, in order."""
+        n = len(self._mesh)
+        if b % n:
+            raise ValueError(f"{what}: the batch's dimension 0 should be "
+                             f"divisible by the mesh's {n} devices, but it is "
+                             f"equal to {b}")
+        per = b // n
+        return [slice(i * per, (i + 1) * per) for i in range(n)]
 
     # -- checkpoints ---------------------------------------------------------------
 
@@ -172,29 +227,45 @@ class WaveVerify:
 
     # -- device programs -------------------------------------------------------
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32), device=self.device)
+    def _tensor(self, a: np.ndarray, device: Optional[torch.device] = None
+                ) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32),
+                            device=self.device if device is None else device)
 
     @torch.no_grad()
+    def _embed_on(self, models: WatermarkModels, device: torch.device,
+                  audio: np.ndarray, bits: np.ndarray) -> torch.Tensor:
+        """Watermarked audio on ``device``, by ``models`` (enqueued)."""
+        x, msg = self._tensor(audio, device), self._tensor(bits, device)
+        residual = models.apply_generator(x.to(self._act), msg.to(self._act))
+        return residual.float() + x
+
     def _embed(self, audio: np.ndarray, bits: np.ndarray) -> np.ndarray:
-        x, msg = self._tensor(audio), self._tensor(bits)
-        residual = self.models.apply_generator(x.to(self._act), msg.to(self._act))
-        return (residual.float() + x).cpu().numpy()
+        return self._embed_on(self.models, self.device, audio, bits).cpu().numpy()
 
     @torch.no_grad()
-    def _detect_probs(self, audio: np.ndarray) -> torch.Tensor:
+    def _detect_probs(self, audio: np.ndarray,
+                      models: Optional[WatermarkModels] = None,
+                      device: Optional[torch.device] = None) -> torch.Tensor:
         """Per-sample bit probabilities ``[B, T, nbits]`` on the device."""
-        x = self._tensor(audio)
-        return torch.sigmoid(self.models.apply_detector(x.to(self._act)).float())
+        x = self._tensor(audio, device)
+        models = self.models if models is None else models
+        return torch.sigmoid(models.apply_detector(x.to(self._act)).float())
 
     @torch.no_grad()
-    def _detect(self, audio: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(bit probabilities [B, nbits], confidence [B]) with sigmoid(logits)
-        averaged over the first ``t`` samples only."""
-        probs = self._detect_probs(audio)
-        valid = (torch.arange(probs.shape[1], device=self.device) < t)[None, :, None]
+    def _detect_on(self, models: WatermarkModels, device: torch.device,
+                   audio: np.ndarray, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(bit probabilities [B, nbits], confidence [B]) on ``device``,
+        sigmoid(logits) averaged over the first ``t`` samples only
+        (enqueued)."""
+        probs = self._detect_probs(audio, models, device)
+        valid = (torch.arange(probs.shape[1], device=probs.device) < t)[None, :, None]
         probs = torch.sum(probs * valid, dim=1) / max(t, 1)
-        return probs.cpu().numpy(), probs.mean(dim=1).cpu().numpy()
+        return probs, probs.mean(dim=1)
+
+    def _detect(self, audio: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
+        probs, conf = self._detect_on(self.models, self.device, audio, t)
+        return probs.cpu().numpy(), conf.cpu().numpy()
 
     def _locate(self, audio: np.ndarray) -> np.ndarray:
         """Presence probabilities ``[B, T]``: sigmoid of the locator."""
@@ -327,12 +398,24 @@ class WaveVerify:
         return detected.to_bits() == expected.to_bits()
 
     def embed_batch(self, audio: np.ndarray, bits: np.ndarray) -> np.ndarray:
-        """audio [B, T] float32, bits [B, 16] -> watermarked [B, T]."""
-        return self._embed(audio, bits)
+        """audio [B, T] float32, bits [B, 16] -> watermarked [B, T]. After
+        :meth:`use_mesh` the batch is split across its devices (B must
+        divide over them)."""
+        audio, bits = np.asarray(audio), np.asarray(bits)
+        outs = [self._embed_on(models, dev, audio[sl], bits[sl])
+                for (dev, models), sl in zip(
+                    self._mesh, self._shares(audio.shape[0], "embed_batch"))]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def detect_batch(self, audio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """audio [B, T] -> (bits [B, 16] int, confidence [B])."""
-        probs, conf = self._detect(audio, np.asarray(audio).shape[-1])
+        """audio [B, T] -> (bits [B, 16] int, confidence [B]). After
+        :meth:`use_mesh` the batch is split across its devices."""
+        audio = np.asarray(audio)
+        outs = [self._detect_on(models, dev, audio[sl], audio.shape[-1])
+                for (dev, models), sl in zip(
+                    self._mesh, self._shares(audio.shape[0], "detect_batch"))]
+        probs = np.concatenate([p.cpu().numpy() for p, _ in outs])
+        conf = np.concatenate([c.cpu().numpy() for _, c in outs])
         return (probs > 0.5).astype(int), conf
 
     @staticmethod

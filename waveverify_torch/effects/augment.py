@@ -18,7 +18,7 @@ rematerialised segment recomputes exactly what its forward computed.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,11 +53,18 @@ def draw_localization(generator: torch.Generator, b: int, t: int,
 def localization_augmentation(
     original: torch.Tensor, watermarked: torch.Tensor, scores: torch.Tensor,
     probs: torch.Tensor, offset: torch.Tensor, sample_rate: int = 16000,
-    window_duration: float = 0.1,
+    window_duration: float = 0.1, donors: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(augmented watermarked, presence mask, updated original), all
-    ``[B, T]``."""
+    ``[B, T]``. ``donors``: the clean audio of the global batch whose rows
+    ``[row0, row0 + B)`` these are (one rank's share); a cross substitution
+    takes its segment from the global batch's item ``(row + offset) %
+    len(donors)``, as one program over the global batch does. None:
+    ``original`` is the whole batch."""
     b, t = watermarked.shape
+    pool = original if donors is None else donors
+    nb = pool.shape[0]
     seg_len, n_segs = localization_segments(t, sample_rate, window_duration)
     n_modify = int(n_segs * TARGET_AUGMENTATION_RATIO)
     dev = watermarked.device
@@ -67,19 +74,19 @@ def localization_augmentation(
     act_revert = probs < ORIGINAL_REVERT_PROB
     act_zero = (probs >= ORIGINAL_REVERT_PROB) & (probs < ZERO_REPLACE_PROB)
     act_cross = probs >= ZERO_REPLACE_PROB
-    if b < 2:
+    if nb < 2:
         # cross substitution needs a second item; the segment stays
         # watermarked
         act_cross = torch.zeros_like(act_cross)
         seg_modified = seg_modified & ~(probs >= ZERO_REPLACE_PROB)
-    donor = (torch.arange(b, device=dev)[:, None] + offset) % max(b, 1)
+    donor = (row0 + torch.arange(b, device=dev)[:, None] + offset) % max(nb, 1)
 
     seg_of_sample = torch.arange(t, device=dev) // seg_len
     modified = seg_modified[:, seg_of_sample]
     revert = act_revert[:, seg_of_sample] & modified
     zero = act_zero[:, seg_of_sample] & modified
     cross = act_cross[:, seg_of_sample] & modified
-    donor_audio = original[donor[:, seg_of_sample],
+    donor_audio = pool[donor[:, seg_of_sample],
                            torch.arange(t, device=dev)[None, :]]
 
     augmented = torch.where(revert, original, watermarked)

@@ -232,9 +232,18 @@ def decoding_loss(detector_logits: torch.Tensor, presence_mask: torch.Tensor,
 def decoding_loss_bits(detector_logits: torch.Tensor,
                        presence_mask: Optional[torch.Tensor],
                        message: torch.Tensor,
-                       bit_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bit_mask: Optional[torch.Tensor] = None, *,
+                       n_valid: Optional[torch.Tensor] = None,
+                       scale: float = 1.0) -> torch.Tensor:
     """BCE on the masked time-mean logit per bit (the decision quantity).
-    ``presence_mask`` None means every frame."""
+    ``presence_mask`` None means every frame.
+
+    With a presence mask the loss is a ratio of sums over the batch: the
+    sum over samples with a watermarked frame, over their count.
+    ``n_valid`` replaces that count and ``scale`` multiplies the sum: a
+    data-parallel step passes the global batch's count and its number of
+    ranks, so that the mean over the ranks of the loss, and of its
+    gradient, is the global batch's (``train.step.global_decoding_loss_bits``)."""
     if presence_mask is None:
         z = torch.mean(detector_logits, dim=1)
         if bit_mask is None:
@@ -246,9 +255,10 @@ def decoding_loss_bits(detector_logits: torch.Tensor,
     denom = torch.sum(m, dim=1)  # [B, 1]
     z = torch.sum(detector_logits * m, dim=1) / torch.clamp(denom, min=1.0)
     valid = (denom > 0).to(z.dtype)
-    per_bit = bce_with_logits(z, message, reduce=False) * valid
+    per_bit = bce_with_logits(z, message, reduce=False) * valid * scale
+    if n_valid is None:
+        n_valid = torch.sum(valid)
     if bit_mask is None:
-        return torch.sum(per_bit) / torch.clamp(torch.sum(valid) * z.shape[-1],
-                                                min=1.0)
+        return torch.sum(per_bit) / torch.clamp(n_valid * z.shape[-1], min=1.0)
     return (torch.sum(per_bit * bit_mask[None, :])
-            / torch.clamp(torch.sum(valid) * torch.sum(bit_mask), min=1.0))
+            / torch.clamp(n_valid * torch.sum(bit_mask), min=1.0))

@@ -20,22 +20,38 @@ So are the JAX trainer's other options: ``--split-disc``,
 ``--steps-per-dispatch``, ``--effect-dispatch``, ``--profile-steps``
 (``torch.profiler``), ``--tensorboard``, ``--wandb`` (a warning and the
 JSONL log where wandb does not import) and ``--debug-nans`` (autograd's
-anomaly mode and a finiteness check per step). The one flag not ported,
-``--num-devices`` (several cards), is accepted and raises ``ValueError``
-naming itself.
+anomaly mode and a finiteness check per step).
+
+``--num-devices N`` trains data parallel over N devices, one process
+(rank) per device, as the JAX trainer does over its mesh
+(:mod:`waveverify_torch.parallel`): ``batch_size`` must divide over N,
+each rank feeds its share of every step, and only rank 0 logs, validates
+and checkpoints. Under ``torchrun`` the command joins the group torchrun
+made (N, when given, must be its world size); otherwise, with N > 1, the
+command starts the N ranks itself on this host, with a rendezvous on
+localhost, so the JAX command line works unchanged::
+
+    python -m waveverify_torch.train --num-devices 4 ...
+    torchrun --nproc_per_node 4 -m waveverify_torch.train ...
+
+On ``cuda`` the ranks talk over NCCL, one card each (more ranks than
+cards raises); ``--device cpu`` runs them over gloo. A rank that fails
+makes the command fail.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import sys
 from typing import Optional, Sequence, Tuple
 
+import torch
+
+from waveverify_torch import parallel
 from waveverify_torch.config import TrainConfig, load_config
 from waveverify_torch.train.loop import DEFAULT_CKPT_DIR, TrainerConfig, train
-
-# flag -> argparse default; any other value is refused
-_UNSUPPORTED = {"num_devices": None}
 
 
 _WORDS = {"true": True, "yes": True, "on": True, "false": False, "no": False,
@@ -82,7 +98,8 @@ def _parse_set(values: Sequence[str], ap: argparse.ArgumentParser) -> dict:
 def parse(argv: Optional[Sequence[str]] = None
           ) -> Tuple[TrainConfig, TrainerConfig, Optional[int], bool, bool]:
     """The run the flags describe: ``(config, trainer options, max steps,
-    resume, verbose)``; raises ``ValueError`` on a flag not ported."""
+    resume, verbose)``; raises ``ValueError`` when ``batch_size`` does not
+    divide over ``--num-devices``."""
     ap = argparse.ArgumentParser(description="Train waveverify with PyTorch")
     ap.add_argument("--config", default=None,
                     help="YAML of the conf/base.yml schema (default: the "
@@ -155,15 +172,12 @@ def parse(argv: Optional[Sequence[str]] = None
                     help="autograd anomaly mode and a finiteness check of "
                     "each step's losses and gradient norms: fail fast on the "
                     "first NaN with FloatingPointError")
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="data parallel over N devices, one rank each (default: "
+                    "torchrun's world size, else 1); outside torchrun the "
+                    "command starts the N ranks itself")
     ap.add_argument("-v", "--verbose", action="store_true")
-    # the JAX trainer's flag that is not ported
-    ap.add_argument("--num-devices", type=int, default=None)
     args = ap.parse_args(argv)
-
-    for name, default in _UNSUPPORTED.items():
-        if getattr(args, name) != default:
-            raise ValueError(f"--{name.replace('_', '-')} is not supported by "
-                             "the PyTorch trainer yet")
 
     profile_start = profile_stop = None
     if args.profile_steps:
@@ -175,6 +189,9 @@ def parse(argv: Optional[Sequence[str]] = None
     if args.no_remat:
         overrides["remat"] = False
     cfg = load_config(args.config, overrides)
+    if args.num_devices is not None and cfg.batch_size % args.num_devices:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide over "
+                         f"{args.num_devices} devices")
     trainer = TrainerConfig(
         train_folders=tuple(args.train_folders),
         val_folders=tuple(args.val_folders),
@@ -196,16 +213,34 @@ def parse(argv: Optional[Sequence[str]] = None
         tensorboard_dir=args.tensorboard,
         wandb_project=args.wandb,
         debug_nans=args.debug_nans,
+        num_devices=args.num_devices,
     )
     return cfg, trainer, args.max_steps, args.resume, args.verbose
 
 
+def _check_cards(n: int, device: str) -> None:
+    """Raise when ``n`` ranks on ``device`` would need more cards than
+    are visible (one card per rank under NCCL)."""
+    if torch.device(device).type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"--num-devices {n}: {n} ranks need {n} CUDA devices, "
+                         f"{torch.cuda.device_count()} visible")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg, trainer, max_steps, resume, verbose = parse(argv)
+    n = trainer.num_devices
+    if "WORLD_SIZE" not in os.environ and n is not None and n > 1:
+        # outside torchrun: start the ranks here; each runs this function
+        # again under torchrun's environment
+        _check_cards(n, trainer.device)
+        parallel.spawn(main, n, list(sys.argv[1:] if argv is None else argv))
+        return
     logging.basicConfig(
         level=logging.DEBUG if verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    parallel.initialize_distributed(device=trainer.device)
     train(cfg, trainer, max_steps=max_steps, resume=resume)
+    parallel.destroy()
 
 
 if __name__ == "__main__":

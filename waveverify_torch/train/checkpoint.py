@@ -10,6 +10,11 @@
 A tag is written into a temporary directory and renamed into place. The
 JAX package's orbax checkpoints are not read (reading them needs JAX):
 :func:`orbax_refusal` names the JAX package's route to an ``.npz``.
+
+In a data-parallel run (``waveverify_torch.parallel``) the training loop
+has rank 0 alone write, while the other ranks wait at a barrier; on resume
+every rank reads ``latest`` after a barrier, and rank 0's state is then
+broadcast, so the replicas start equal.
 """
 
 from __future__ import annotations

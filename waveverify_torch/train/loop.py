@@ -15,6 +15,17 @@ attack latch, the message-path freeze and its lockstep re-freeze) and
 :class:`NbitsCurriculum`. Their states go into the checkpoint meta under
 the JAX loop's keys (``ramp_state``, ``nbits_state``), so a meta written
 by either package restores the other's controllers.
+
+Across the ranks of a process group (``waveverify_torch.parallel``; the
+CLI's ``--num-devices``), the loop is the JAX loop's over its data mesh:
+each rank feeds ``batch_size / N`` rows from a data seed of its own and
+selects its rows' attacks with its own scheduler, fed its own rows; every
+step's draws are the global batch's, from one seed, each rank keeping its
+rows; the controllers take the global ``train/ber`` and per-bit accuracy,
+so they stay equal on every rank. Rank 0's state is broadcast after
+set-up; only rank 0 logs, dumps samples, validates and checkpoints, and
+every rank waits at a barrier before the first step and after each
+validation block.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from waveverify_torch import parallel
 from waveverify_torch.config import TrainConfig, model_config_dict
 from waveverify_torch.effects.effects import EffectBank
 from waveverify_torch.effects.effects_config import load_effects_config
@@ -426,9 +438,10 @@ class TrainerConfig:
     ``torch.profiler`` trace of those steps in ``<ckpt_dir>/profile``;
     ``tensorboard_dir`` and ``wandb_project`` the Tracker's mirrors;
     ``debug_nans`` autograd's anomaly mode and a finiteness check of each
-    step's losses and gradient norms, raising ``FloatingPointError``.
-
-    Not ported (the CLI refuses it by name): ``--num-devices``.
+    step's losses and gradient norms, raising ``FloatingPointError``;
+    ``num_devices`` the data mesh's size, which must be the number of ranks
+    in the process group (None: whatever joined; see
+    :mod:`waveverify_torch.parallel`).
     """
 
     train_folders: Tuple[str, ...] = ()
@@ -453,6 +466,7 @@ class TrainerConfig:
     tensorboard_dir: Optional[str] = None
     wandb_project: Optional[str] = None
     debug_nans: bool = False
+    num_devices: Optional[int] = None
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -575,6 +589,41 @@ def _msg_path_params(state: TrainState) -> Dict[str, torch.Tensor]:
             if in_msg_path(n)}
 
 
+def _replicate(state: TrainState) -> None:
+    """Rank 0's parameters, buffers, optimizer moments, schedules and step
+    count on every rank of the process group, whatever each rank read at
+    set-up (no-op without a group)."""
+    if not parallel.is_active():
+        return
+    opts = (state.wm_opt, state.disc_opt)
+    tensors = list(state.models.state_dict(keep_vars=True).values())
+    host = []  # optimizer state kept off the card (AdamW's step counts)
+    for opt in opts:
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state.get(p, {})
+                for k in sorted(st):
+                    (tensors if st[k].device == p.device else host).append(st[k])
+    parallel.broadcast_tensors(tensors)
+    src = parallel.broadcast_object({
+        "step": state.step, "wm_sched": state.wm_sched.state_dict(),
+        "disc_sched": state.disc_sched.state_dict(),
+        "lrs": [[g["lr"] for g in opt.param_groups] for opt in opts],
+        "host": [t.tolist() for t in host]})
+    if len(src["host"]) != len(host):
+        raise RuntimeError(f"rank {parallel.rank()} holds {len(host)} host-side "
+                           f"optimizer tensors, rank 0 {len(src['host'])}")
+    with torch.no_grad():
+        for t, v in zip(host, src["host"]):
+            t.copy_(torch.tensor(v, dtype=t.dtype))
+    state.step = src["step"]
+    state.wm_sched.load_state_dict(src["wm_sched"])
+    state.disc_sched.load_state_dict(src["disc_sched"])
+    for opt, lrs in zip(opts, src["lrs"]):
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr
+
+
 def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
     """Raise ``FloatingPointError`` naming the step and the first loss or
     gradient norm of a step's metrics (stacked ``[K]`` for a dispatch that
@@ -594,7 +643,8 @@ class _StepProfile:
     """A ``torch.profiler`` trace of steps [start, stop), checked at each
     dispatch's first step as the JAX loop checks it, written as a Chrome
     trace to ``<ckpt_dir>/profile/steps_<first>_<end>.json`` when it stops
-    (at ``stop`` or at the end of the run)."""
+    (at ``stop`` or at the end of the run); each rank of a process group
+    traces itself, into ``..._rank<r>.json``."""
 
     def __init__(self, ckpt_dir: str, start: Optional[int],
                  stop: Optional[int], device: torch.device):
@@ -623,7 +673,8 @@ class _StepProfile:
             torch.cuda.synchronize()
         self._prof.stop()
         self.dir.mkdir(parents=True, exist_ok=True)
-        path = self.dir / f"steps_{self._first}_{step}.json"
+        tag = f"_rank{parallel.rank()}" if parallel.world_size() > 1 else ""
+        path = self.dir / f"steps_{self._first}_{step}{tag}.json"
         self._prof.export_chrome_trace(str(path))
         self._prof = None
         logger.info("profile of steps [%d, %d) written to %s", self._first, step, path)
@@ -635,11 +686,18 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     (``cuda`` by default; raises without a card). ``max_steps`` is the
     step count to stop at, counted from 0 (a resumed or restored run starts
     at its checkpoint's step); with K steps per dispatch the run goes on to
-    the end of the dispatch that reaches it, as the JAX loop does."""
+    the end of the dispatch that reaches it, as the JAX loop does. In a
+    process group every rank calls it, on its own device (the module
+    docstring says what each rank does)."""
     k_steps = max(1, int(trainer.steps_per_dispatch))
     if trainer.split_disc_step and k_steps > 1:
         raise ValueError("split_disc_step requires steps_per_dispatch=1")
-    device = resolve_device(trainer.device)
+    resolve_device(trainer.device)
+    mesh = parallel.make_mesh(trainer.num_devices, trainer.device)
+    lo, hi = mesh.rows(cfg.batch_size)
+    local_bs = hi - lo
+    is_main = mesh.index == 0
+    device = mesh.device
     if device.type == "cuda":
         set_conv_precision(trainer.conv_precision or "highest")
     sr = cfg.generator.sample_rate
@@ -653,8 +711,10 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
         miou_threshold=fx_cfg.miou_threshold,
         rng=np.random.RandomState(cfg.seed + 1))
     log_file = trainer.log_file or str(Path(trainer.ckpt_dir) / "train_log.jsonl")
-    tracker = Tracker(log_file, tb_dir=trainer.tensorboard_dir,
-                      wandb_project=trainer.wandb_project,
+    # the log and its mirrors are rank 0's
+    tracker = Tracker(log_file if is_main else None,
+                      tb_dir=trainer.tensorboard_dir if is_main else None,
+                      wandb_project=trainer.wandb_project if is_main else None,
                       wandb_config={"batch_size": cfg.batch_size,
                                     "num_iters": cfg.num_iters,
                                     "lr": cfg.optim.lr})
@@ -670,6 +730,7 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     fresh_msg = _msg_path_params(state) if trainer.reinit_msg_path else None
     resumed = resume and "latest" in ckpt.checkpoint_tags(trainer.ckpt_dir)
     if resumed:
+        parallel.barrier()
         meta = ckpt.load_checkpoint(trainer.ckpt_dir, "latest", state)
         _restore_controllers(meta, scheduler, ramp, curr)
         tracker.best_val_loss = float(meta.get("best_val_loss", float("inf")))
@@ -696,10 +757,12 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
                     if f"{net}.{n}" in fresh_msg:
                         p.copy_(fresh_msg[f"{net}.{n}"])
         logger.info("re-initialized the message path (msg_*, film_*)")
+    _replicate(state)
     start_step = state.step
 
-    # on resume the data stream continues with fresh clips
-    data_seed = cfg.seed + start_step
+    # on resume the data stream continues with fresh clips; each rank has
+    # a stream of its own
+    data_seed = cfg.seed + start_step + 7919 * mesh.index
     if trainer.train_folders:
         train_ds = AudioFolderDataset(trainer.train_folders, cfg.train_duration,
                                       sr, data_seed)
@@ -717,23 +780,29 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     total = max_steps if max_steps is not None else cfg.num_iters
     identity = _identity_branch(bank)
 
-    batches = prefetch_batches(train_ds, cfg.batch_size, nbits, data_seed)
+    batches = prefetch_batches(train_ds, local_bs, nbits, data_seed)
 
     def host_inputs(step: int, fx_on: bool):
-        """Step ``step``'s batch, its attacks (the identity branch while
-        the attack latch is closed) and its draws, on the host."""
+        """Step ``step``'s rows of this rank, their attacks (the identity
+        branch while the attack latch is closed) and their draws, on the
+        host: the global batch's draws, cut to this rank's rows."""
         audio_np, msg_np = next(batches)
         if fx_on:
             idx, selections = scheduler.select_bank_indices(
-                cfg.batch_size, bank.specs,
+                local_bs, bank.specs,
                 match_reference_cap=trainer.match_reference_effect_cap)
         else:
-            idx = np.full(cfg.batch_size, identity, np.int32)
-            selections = [bank.specs[identity]] * cfg.batch_size
+            idx = np.full(local_bs, identity, np.int32)
+            selections = [bank.specs[identity]] * local_bs
+        # per-sample draws follow every rank's attacks, in the global order
+        global_idx = (np.concatenate(parallel.all_gather_object(idx))
+                      if bank.dispatch == "scan" and mesh.size > 1 else idx)
         draws = draw(step_generator(cfg.seed, step), cfg.batch_size,
-                     audio_np.shape[1], bank.draw_specs(idx), sr,
+                     audio_np.shape[1], bank.draw_specs(global_idx), sr,
                      cfg.window_duration, jitter_hop,
                      per_sample=bank.dispatch == "scan")
+        if mesh.size > 1:
+            draws = draws.rows(lo, hi)
         return audio_np, msg_np, idx, selections, draws
 
     def run_dispatch(inputs, train_disc, parts, audios, msgs, draws, held):
@@ -758,6 +827,8 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     profile = _StepProfile(trainer.ckpt_dir, trainer.profile_start,
                            trainer.profile_stop, device)
     step = start_step
+    # every rank has built its state and its data before the first collective
+    parallel.barrier()
     try:
         with torch.autograd.set_detect_anomaly(trainer.debug_nans):
             while step < total:
@@ -843,17 +914,21 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
                                 host["loc/loss"], host["train/ber"],
                                 host["train/miou"])
 
-                if trainer.dump_samples and (step // cfg.sample_freq
-                                             != step_end // cfg.sample_freq
-                                             or step_end >= total):
+                if is_main and trainer.dump_samples and (
+                        step // cfg.sample_freq != step_end // cfg.sample_freq
+                        or step_end >= total):
                     _dump_audio_samples(state, audios[-1], msgs[-1], trainer.ckpt_dir,
                                         step_end, sr, tracker=tracker)
 
                 if (step // cfg.valid_freq != step_end // cfg.valid_freq
                         or step_end >= total):
-                    _validate_and_save(state, cfg, trainer, tracker, scheduler,
-                                       val_ds, val_rng, eval_effects, step,
-                                       step_end, ramp, curr)
+                    if is_main:
+                        _validate_and_save(state, cfg, trainer, tracker, scheduler,
+                                           val_ds, val_rng, eval_effects, step,
+                                           step_end, ramp, curr)
+                    # the other ranks wait out rank 0's validation and
+                    # checkpoint, inside the group's timeout
+                    parallel.barrier()
                 step = step_end
         if pending is not None:
             if pending[2] is not None:

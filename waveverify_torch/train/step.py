@@ -23,6 +23,16 @@ decoding loss.
 
 The pieces are functions of their own so a caller can time them apart.
 
+Across the ranks of a process group (``waveverify_torch.parallel``), each
+rank steps on its own rows of the global batch and the step computes the
+JAX package's global-batch program: the localization's donor rows come
+from the global batch; each backward's gradients are averaged over the
+ranks before the clip and the gates, so the gradient norms are the global
+ones; the decoding-bits loss and the per-bit accuracy take their counts
+from global sums; the reported losses, ``train/ber`` and ``train/miou``
+are global means. ``per_sample_*`` stay the rank's own rows, which its
+effect scheduler selected. Without a group nothing is reduced.
+
 Two other forms of the step, as the JAX package has them: the split step
 (:func:`disc_step`, then :func:`train_step` with ``update_disc=False``),
 whose discriminator update runs on a no-grad generator forward of its own
@@ -37,6 +47,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from waveverify_torch import parallel
 from waveverify_torch.config import LossConfig, TrainConfig
 from waveverify_torch.effects.effects import EffectBank
 from waveverify_torch.losses import (
@@ -84,10 +95,12 @@ def frozen(module: torch.nn.Module) -> Iterator[None]:
 def forward(state: TrainState, cfg: TrainConfig, bank: EffectBank,
             audio: torch.Tensor, msg: torch.Tensor, effect_idx,
             draws: Draws) -> Dict[str, torch.Tensor]:
-    """Step 1: the composite forward with its graph."""
+    """Step 1: the composite forward with its graph. In a process group
+    the localization's donors are the global batch's clean audio."""
     loss_cfg = cfg.loss
+    donors = parallel.all_gather_rows(audio) if parallel.is_active() else None
     return forward_train(
-        state.models, audio, msg, effect_idx, bank, draws,
+        state.models, audio, msg, effect_idx, bank, draws, donors=donors,
         sample_rate=cfg.generator.sample_rate,
         window_duration=cfg.window_duration, remat=cfg.remat,
         clean_detector=loss_cfg.lambda_dec_clean > 0,
@@ -99,18 +112,41 @@ def forward(state: TrainState, cfg: TrainConfig, bank: EffectBank,
 def discriminator_update(state: TrainState, cfg: TrainConfig,
                          fake: torch.Tensor, audio: torch.Tensor,
                          alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step 2: (loss, pre-clip gradient norm)."""
+    """Step 2: (loss, pre-clip gradient norm of the gradient averaged over
+    the ranks)."""
     models = state.models
     d_loss = discriminator_loss(models.apply_discriminator, fake.detach(),
                                 audio, alpha=alpha,
                                 gp_weight=cfg.loss.gp_weight)
     state.disc_opt.zero_grad(set_to_none=True)
     d_loss.backward()
+    parallel.all_reduce_grads(models.discriminator.parameters())
     norm = torch.nn.utils.clip_grad_norm_(models.discriminator.parameters(),
                                           MAX_GRADIENT_NORM)
     state.disc_opt.step()
     state.disc_sched.step()
     return d_loss.detach(), norm
+
+
+def global_decoding_loss_bits(detector_logits: torch.Tensor,
+                              presence_mask: Optional[torch.Tensor],
+                              message: torch.Tensor,
+                              bit_mask: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """``decoding_loss_bits`` of the rank's rows as a share of the global
+    batch's: with a presence mask the count of valid samples is a global
+    sum (detached) and the rank's sum is scaled by the number of ranks, so
+    that the mean over the ranks of the loss and of its gradient is the
+    global batch's, whatever count each rank holds. Without a mask, or
+    without a process group, it is ``decoding_loss_bits`` itself."""
+    if presence_mask is None or not parallel.is_active():
+        return decoding_loss_bits(detector_logits, presence_mask, message,
+                                  bit_mask=bit_mask)
+    valid = (torch.sum(presence_mask, dim=1) > 0).to(detector_logits.dtype)
+    return decoding_loss_bits(detector_logits, presence_mask, message,
+                              bit_mask=bit_mask,
+                              n_valid=parallel.global_sum(torch.sum(valid)),
+                              scale=parallel.world_size())
 
 
 def generator_losses(state: TrainState, cfg: TrainConfig,
@@ -157,8 +193,8 @@ def generator_losses(state: TrainState, cfg: TrainConfig,
                                                ones, msg, bit_mask=bm)
         total = total + lc.lambda_dec_clean * logs["dec/loss_clean"]
     if lc.lambda_dec_bits > 0:
-        bits = decoding_loss_bits(outs["detector_logits"], outs["mask"], msg,
-                                  bit_mask=bm)
+        bits = global_decoding_loss_bits(outs["detector_logits"], outs["mask"],
+                                         msg, bit_mask=bm)
         if lc.lambda_dec_clean > 0:
             bits = bits + decoding_loss_bits(outs["detector_logits_clean"],
                                              None, msg, bit_mask=bm)
@@ -195,6 +231,8 @@ def generator_update(state: TrainState, total: torch.Tensor,
     models = state.models
     state.wm_opt.zero_grad(set_to_none=False)
     total.backward()
+    parallel.all_reduce_grads(p for net in ("generator", "detector", "locator")
+                              for p in getattr(models, net).parameters())
     norms = {f"grad_norm/{net}": grad_norm(getattr(models, net))
              for net in ("detector", "locator")}
     norms["grad_norm/generator"] = torch.nn.utils.clip_grad_norm_(
@@ -213,8 +251,10 @@ def generator_update(state: TrainState, total: torch.Tensor,
 @torch.no_grad()
 def feedback(outs: Dict[str, torch.Tensor], msg: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
-    """Step 5: per-sample BER and MIoU, and the per-bit decision accuracy
-    of the mask-weighted time-mean logit."""
+    """Step 5: per-sample BER and MIoU (the rank's rows), their global
+    means, and the per-bit decision accuracy of the mask-weighted time-mean
+    logit over the global batch (global sums of the correct and the valid
+    samples)."""
     logits, mask = outs["detector_logits"], outs["mask"]
     per_sample_ber = ber(logits, msg, mask, per_sample=True)
     per_sample_miou = miou(torch.sigmoid(outs["locator_logits"]), mask,
@@ -224,12 +264,15 @@ def feedback(outs: Dict[str, torch.Tensor], msg: torch.Tensor
     z = torch.sum(logits * pm, dim=1) / torch.clamp(denom, min=1.0)
     valid = (denom > 0).float()
     correct = ((z > 0) == (msg > 0.5)).float() * valid
-    per_bit_acc = torch.sum(correct, dim=0) / torch.clamp(torch.sum(valid), min=1.0)
-    return {"train/ber": torch.mean(per_sample_ber),
-            "train/miou": torch.mean(per_sample_miou),
-            "per_sample_ber": per_sample_ber,
-            "per_sample_miou": per_sample_miou,
-            "per_bit_acc": per_bit_acc}
+    sums = parallel.global_sum(torch.cat([torch.sum(correct, dim=0),
+                                          torch.sum(valid).reshape(1)]))
+    per_bit_acc = sums[:-1] / torch.clamp(sums[-1], min=1.0)
+    return parallel.global_means(
+        {"train/ber": torch.mean(per_sample_ber),
+         "train/miou": torch.mean(per_sample_miou),
+         "per_sample_ber": per_sample_ber,
+         "per_sample_miou": per_sample_miou,
+         "per_bit_acc": per_bit_acc}, ("train/ber", "train/miou"))
 
 
 def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
@@ -265,10 +308,10 @@ def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
     norms = generator_update(state, logs["loss"], gen_update_scale,
                              msg_update_scale)
     state.step += 1
-    return {**{k: v.detach() for k, v in logs.items()},
-            "adv/disc_loss": d_loss,
-            **norms,
-            "grad_norm/discriminator": d_norm,
+    losses = parallel.global_means({**{k: v.detach() for k, v in logs.items()},
+                                    "adv/disc_loss": d_loss},
+                                   list(logs) + ["adv/disc_loss"])
+    return {**losses, **norms, "grad_norm/discriminator": d_norm,
             **feedback(outs, msg)}
 
 
@@ -283,7 +326,8 @@ def disc_step(state: TrainState, cfg: TrainConfig, audio: torch.Tensor,
         fake = state.models.apply_generator(audio, msg)
     d_loss, d_norm = discriminator_update(state, cfg, fake, audio,
                                           draws.gp_alpha)
-    return {"adv/disc_loss": d_loss, "grad_norm/discriminator": d_norm}
+    return {"adv/disc_loss": parallel.global_mean(d_loss),
+            "grad_norm/discriminator": d_norm}
 
 
 def train_steps(state: TrainState, cfg: TrainConfig, bank: EffectBank,

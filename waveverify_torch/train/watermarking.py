@@ -33,6 +33,7 @@ from waveverify_torch.effects.effects import (
     effect_fn,
     move_draws,
     random_indices,
+    take_rows,
 )
 from waveverify_torch.metrics import ber, miou
 from waveverify_torch.models import WatermarkModels
@@ -51,7 +52,8 @@ class Draws:
     bank's "scan" dispatch one dict per sample (``EffectBank.draw_specs``);
     jitter, jitter_clean ``[B]``: the sub-hop rolls (None when off);
     gp_alpha ``[B]``: the gradient penalty's interpolation weights (None in
-    validation)."""
+    validation); per_sample: whether ``fx`` holds one entry per sample;
+    row0: the global batch row of the first row (:meth:`rows`)."""
 
     loc_scores: torch.Tensor
     loc_probs: torch.Tensor
@@ -63,11 +65,34 @@ class Draws:
     jitter: Optional[torch.Tensor] = None
     jitter_clean: Optional[torch.Tensor] = None
     gp_alpha: Optional[torch.Tensor] = None
+    per_sample: bool = False
+    row0: int = 0
 
     def to(self, device: torch.device) -> "Draws":
         return dataclasses.replace(self, **{
             f.name: move_draws(getattr(self, f.name), device)
             for f in dataclasses.fields(self)})
+
+    def rows(self, lo: int, hi: int) -> "Draws":
+        """Rows ``[lo, hi)`` of a global batch's draws, for the rank that
+        holds those rows (the JAX package's replicated key: every rank
+        draws the global batch and keeps its slice). Batch-shaped draws are
+        sliced, and so are per-sample effect draws; a branch's whole-batch
+        effect draws keep their 0-d entries (one draw per call, shared by
+        the branch's samples on every rank); the sequence augmentation's
+        draws are the whole batch's and stay as they are."""
+        rows = torch.arange(lo, hi)
+
+        def cut(t):
+            return None if t is None else t[lo:hi]
+
+        fx = (self.fx[lo:hi] if self.per_sample
+              else [take_rows(d, rows) for d in self.fx])
+        return dataclasses.replace(
+            self, loc_scores=cut(self.loc_scores), loc_probs=cut(self.loc_probs),
+            loc_offset=cut(self.loc_offset), fx=fx, jitter=cut(self.jitter),
+            jitter_clean=cut(self.jitter_clean), gp_alpha=cut(self.gp_alpha),
+            row0=self.row0 + lo)
 
 
 def draw(generator: torch.Generator, b: int, t: int,
@@ -93,7 +118,7 @@ def draw(generator: torch.Generator, b: int, t: int,
         jitter_clean = torch.randint(0, jitter_hop, (b,), generator=generator)
     alpha = torch.rand((b,), generator=generator) if gp else None
     return Draws(scores, probs, offset, u, shift, perm, fx, jitter,
-                 jitter_clean, alpha)
+                 jitter_clean, alpha, per_sample)
 
 
 def _sub_hop_roll(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -115,7 +140,7 @@ def forward_train(
     effect_idx, bank: EffectBank, draws: Draws, sample_rate: int = 16000,
     window_duration: float = 0.1, remat: bool = True,
     clean_detector: bool = False, jitter_hop: int = 0,
-    lowband_cutoff: float = 0.0,
+    lowband_cutoff: float = 0.0, donors: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The training forward: generator, augmentations, the bank's attacks,
     detector and locator.
@@ -127,14 +152,18 @@ def forward_train(
     locator_logits ``[B, T]``, updated_original; and
     detector_logits_clean / _lowband when those paths are on. With
     ``remat`` the three networks and the augment-and-attack segment are
-    recomputed in the backward pass."""
+    recomputed in the backward pass. ``donors``: the clean audio of the
+    global batch whose rows ``draws.row0`` on ``audio`` holds, from which
+    the localization's cross substitution takes its segments (None:
+    ``audio`` is the whole batch)."""
     residual = _maybe_checkpoint(remat, models.apply_generator, audio, msg)
     watermarked = residual + audio
 
     def augment_and_attack(watermarked, audio):
         augmented, mask, updated_original = localization_augmentation(
             audio, watermarked, draws.loc_scores, draws.loc_probs,
-            draws.loc_offset, sample_rate, window_duration)
+            draws.loc_offset, sample_rate, window_duration, donors=donors,
+            row0=draws.row0)
         augmented, updated_original, mask = sequence_augmentation(
             augmented, updated_original, mask, draws.seq_u, draws.seq_shift,
             draws.seq_perm, sample_rate)
