@@ -63,8 +63,8 @@ Phases, each fatal on failure:
      the card, card vs CPU at batch 2; (ii) those weights as a reference
      .pth (atomic and un-stripped forms, tests/reference_checkpoint.py)
      served on the card, logits at batch 64 against (i)'s; (iii) phase 6's
-     checkpoint served as its tag directory and its root, bit for bit its
-     weights.npz, and an orbax directory refused; (iv) run_sweep with every
+     checkpoint served as its tag directory and its root, and its weights
+     as an orbax directory, bit for bit its weights.npz; (iv) run_sweep with every
      catalog effect as a row on r5 at the CLI's defaults, and card vs CPU
      at batch 2 x 1 s with the same draws; (v) the 20-branch bank alone,
      card vs CPU, forward and backward; one full-width step at batch 2 on
@@ -105,7 +105,16 @@ Phases, each fatal on failure:
      steps, and --num-devices 2 refused on one card; (iv)
      WaveVerify.use_mesh() and use_mesh(["cuda:0", "cuda:0"]) at batch 64
      against the unsplit call, the latter also from a server built on the
-     CPU (its replica copied to the card).
+     CPU (its replica copied to the card);
+ 12. the JAX trainer's orbax checkpoints, read and written without JAX
+     (each fatal on failure): (i) the committed fixture
+     (tests/fixtures/orbax_tiny_run, a JAX run after one step) served on
+     the card at batch 8 against the CPU port, libzstd's file and version;
+     (ii) r5 written as orbax by the port's writer and served at batch 64
+     bit for bit as the .npz, its bytes and the seconds to write and read;
+     (iii) the training CLI with --resume on a copy of the fixture's run
+     for 2 steps, and the first resumed step card vs CPU (phase 6's
+     limits, or four times the card's own spread where that is larger).
 
 With --kernel-only the run stops after phase 3 and prints no result line.
 With --ab-times TREE it only times the one-process paths of the port in
@@ -729,7 +738,7 @@ def check_chain_grads(torch, rc, report):
 def check_train_step(torch, rc, report, gates=None, label="train_step_check",
                      bank=None, idx=None, audio=None, spread=False, cfg=None,
                      chains=TRAIN_CHAINS, scalar_spread=False, prepare=None,
-                     leaf_floor=0.0, scalar_limits=None):
+                     leaf_floor=0.0, scalar_limits=None, resume=None):
     """Training a: one step at full width (TrainConfig(), batch 2 x 16000)
     on the card against the same step of the port on the CPU, from the
     same seed-0 parameters and draws, f32 with TF32 off: the losses, the
@@ -751,7 +760,9 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     leaf's deviation is measured against at least that share of its
     network's gradient norm (a gradient far below its network's cannot be
     compared relative to itself). ``scalar_limits`` raises the limit of
-    the losses it names. Returns the launches of
+    the losses it names. ``resume`` is a checkpoint root whose ``latest``
+    each state resumes (``train.checkpoint.load_checkpoint``) before the
+    step, which is then the checkpoint's step. Returns the launches of
     the card's step."""
     import dataclasses
 
@@ -759,16 +770,25 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     from waveverify_torch.effects.effects import EffectBank
     from waveverify_torch.train.state import create_train_state
 
+    from waveverify_torch.train.checkpoint import load_checkpoint
+
     what = "TrainConfig()" if cfg is None else "its config"
     cfg = dataclasses.replace(cfg or TrainConfig(), batch_size=2)
     bank = bank or EffectBank.default_train_bank()
-    batch = train_batch(cfg, bank, 2, 0, idx, audio)
+
+    def fresh(dev):
+        state = create_train_state(cfg, torch.Generator().manual_seed(0),
+                                   torch.device(dev))
+        if prepare is not None:
+            prepare(state.models)
+        if resume is not None:
+            load_checkpoint(resume, "latest", state, cfg)
+        return state
+
+    batch = train_batch(cfg, bank, 2, fresh("cpu").step if resume else 0, idx, audio)
     states, metrics = {}, {}
     for dev in ("cpu", "cuda"):
-        states[dev] = create_train_state(cfg, torch.Generator().manual_seed(0),
-                                         torch.device(dev))
-        if prepare is not None:
-            prepare(states[dev].models)
+        states[dev] = fresh(dev)
         t0 = time.perf_counter()
         rc.resblock_chain.launches = 0
         metrics[dev] = run_train_step(torch, states[dev], cfg, bank, batch, dev, gates)
@@ -782,10 +802,7 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     # the card's own spread per leaf and per scalar, under audio * (1 + e)
     own, own_scalar = {}, {}
     for e in ((1e-7, -1e-7) if spread is True else spread or ()):
-        st = create_train_state(cfg, torch.Generator().manual_seed(0),
-                                torch.device("cuda"))
-        if prepare is not None:
-            prepare(st.models)
+        st = fresh("cuda")
         audio_e, *rest = batch
         m_e = run_train_step(torch, st, cfg, bank, (audio_e * (1 + e), *rest), "cuda",
                              gates)
@@ -840,8 +857,10 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
     for k, v in (scalar_limits or {}).items():
         norm_limit[k] = max(norm_limit.get(k, 1e-4), v)
     # Adam's first step moves a parameter by lr * g / (|g| + eps): a gradient
-    # sign the two sides round apart costs up to 2 lr, plus the rounding of
-    # p +- lr in f32
+    # sign the two sides round apart costs up to 2 lr (the network's, its
+    # multiplier included), plus the rounding of p +- lr in f32
+    mult = {"generator": cfg.optim.generator_lr_mult,
+            "detector": cfg.optim.detector_lr_mult}
     worst_param, param_limit = {}, {}
     for net in TRAIN_NETS:
         a = dict(getattr(states["cpu"].models, net).named_parameters())
@@ -849,10 +868,10 @@ def check_train_step(torch, rc, report, gates=None, label="train_step_check",
             float((p.detach().cpu() - a[n].detach()).abs().max())
             for n, p in getattr(states["cuda"].models, net).named_parameters())
         p_max = max(float(p.detach().abs().max()) for p in a.values())
-        param_limit[net] = 2 * TRAIN_LR + 2 * torch.finfo(torch.float32).eps * p_max
+        param_limit[net] = (2 * cfg.optim.lr * mult.get(net, 1.0)
+                            + 2 * torch.finfo(torch.float32).eps * p_max)
     for net in untrained:
-        init = create_train_state(cfg, torch.Generator().manual_seed(0),
-                                  torch.device("cpu"))
+        init = fresh("cpu")
         for (n, p), q in zip(getattr(states["cuda"].models, net).named_parameters(),
                              getattr(init.models, net).parameters()):
             if not torch.equal(p.detach().cpu(), q.detach()):
@@ -1642,8 +1661,9 @@ def check_pth(torch, rc, report, card, flat, audio, bits):
 
 def check_ckpt_dirs(torch, rc, report, cli_dir):
     """Phase 8.3: phase 6's CLI output served as its tag directory and as
-    its root, bit for bit what its ``weights.npz`` serves; an orbax-shaped
-    directory raises, naming the route to an .npz. Returns the launches."""
+    its root, and its weights written as an orbax directory (the JAX
+    trainer's format, by the port's writer) served as its root, each bit
+    for bit what its ``weights.npz`` serves. Returns the launches."""
     import tempfile
 
     import numpy as np
@@ -1657,29 +1677,21 @@ def check_ckpt_dirs(torch, rc, report, cli_dir):
     ref = WaveVerify(root / "latest" / "weights.npz", device="cuda")
     want = ref.embed_batch(audio, bits)
     want_bits, want_conf = ref.detect_batch(want)
-    rc.resblock_chain.launches = 0
-    for path in (root / "latest", root):
-        wv = WaveVerify(path, device="cuda")
-        w = wv.embed_batch(audio, bits)
-        b, c = wv.detect_batch(w)
-        if not (np.array_equal(w, want) and np.array_equal(b, want_bits)
-                and np.array_equal(c, want_conf)):
-            raise AssertionError(f"checkpoint directory {path} does not serve its weights")
-    launches = rc.resblock_chain.launches
     with tempfile.TemporaryDirectory() as tmp:
-        (Path(tmp) / "latest" / "state").mkdir(parents=True)
-        try:
-            WaveVerify(tmp, device="cuda")
-        except ValueError as e:
-            refused = "save_weights_npz" in str(e) and "load_params" in str(e)
-        else:
-            refused = False
-    report["ckpt_dirs"] = {"launches": launches, "orbax_refused": refused}
-    print(f"8.3 the CLI's checkpoint as tag dir and root: embed+detect bit for bit its "
-          f"weights.npz's ({launches} launches); an orbax directory refused with the "
-          f"route to an .npz: {refused}")
-    if not refused:
-        raise AssertionError("an orbax-shaped directory was not refused")
+        orbax_weights(root / "latest" / "weights.npz", Path(tmp) / "latest")
+        rc.resblock_chain.launches = 0
+        for path in (root / "latest", root, Path(tmp)):
+            wv = WaveVerify(path, device="cuda")
+            w = wv.embed_batch(audio, bits)
+            b, c = wv.detect_batch(w)
+            if not (np.array_equal(w, want) and np.array_equal(b, want_bits)
+                    and np.array_equal(c, want_conf)):
+                raise AssertionError(f"checkpoint directory {path} does not serve "
+                                     "its weights")
+        launches = rc.resblock_chain.launches
+    report["ckpt_dirs"] = {"launches": launches, "orbax_served": True}
+    print(f"8.3 the CLI's checkpoint as tag dir and root, and as an orbax directory: "
+          f"embed+detect bit for bit its weights.npz's ({launches} launches)")
     return launches
 
 
@@ -3003,6 +3015,195 @@ def check_mesh_serving(torch, rc, report, r5, audio, bits):
     return total
 
 
+# -- phase 12: the JAX trainer's orbax checkpoints --------------------------------
+
+# a JAX run after one step (tests/make_orbax_fixture.py): the tiny widths,
+# the MRD alone, the r5 recipe's learning-rate multipliers
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "orbax_tiny_run"
+ORBAX_BATCH = 8
+ORBAX_CLI_STEPS = 2
+
+
+def orbax_weights(npz, tag_dir):
+    """Write a ``save_weights_npz`` file's networks as an orbax inference
+    checkpoint (``step`` and ``wm_params``, f32) with the port's writer."""
+    import numpy as np
+
+    from waveverify_torch.train.ocdbt import write_state
+    from waveverify_torch.weights import read_npz
+
+    flat, snap = read_npz(npz)
+    tree = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return write_state(tag_dir, {"step": np.asarray(0, np.int32), "wm_params": tree},
+                       {"model_config": snap})
+
+
+def model_chains(models):
+    """(generator, detector, locator): the (T, C, M) of each run of
+    residual blocks the seanet gate sends to the kernel in a forward of
+    ``models`` (T is not needed and is None; k must be 5, the default of
+    ``launches_per_chain``)."""
+    from waveverify_torch.modules.seanet import MAX_CHANNELS
+
+    out = []
+    for net in ("generator", "detector", "locator"):
+        chains = []
+        for mod in getattr(models, net).modules():
+            i = 0
+            while hasattr(mod, f"block_{i}_0") and hasattr(mod, "n_residual_layers"):
+                blocks = [getattr(mod, f"block_{i}_{j}")
+                          for j in range(mod.n_residual_layers)]
+                c = blocks[0].block_0_pw.conv.weight().shape[1]
+                if c <= MAX_CHANNELS and all(b.fusable() for b in blocks):
+                    if blocks[0].kernel_size != 5:
+                        raise AssertionError(f"{net}: chain of kernel size "
+                                             f"{blocks[0].kernel_size}")
+                    chains.append((None, c, len(blocks)))
+                i += 1
+        out.append(chains)
+    return tuple(out)
+
+
+def _launches(rc, chains):
+    return sum(rc.launches_per_chain(c, m) for _, c, m in chains)
+
+
+def check_orbax_fixture(torch, rc, report):
+    """Phase 12 (i): the committed fixture served on the card,
+    ``WaveVerify(<fixture>, device="cuda")``, embed+detect at batch 8 x
+    1 s against the CPU port on the same directory: watermarked audio and
+    logits within RANDOM_INIT_TOL (phase 8's card-vs-CPU limit), the bits
+    equal wherever the decision is not a coin-flip (phase 4's margin);
+    libzstd's file and version, and the seconds to read. Returns the
+    launches."""
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+    from waveverify_torch.train.ocdbt import zstd_info
+
+    path, version = zstd_info()
+    rng = np.random.RandomState(12)
+    audio = (rng.randn(ORBAX_BATCH, CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (ORBAX_BATCH, 16)).astype(np.float32)
+    t0 = time.perf_counter()
+    card = WaveVerify(ORBAX_FIXTURE, device="cuda")
+    read_s = time.perf_counter() - t0
+    cpu = WaveVerify(ORBAX_FIXTURE, device="cpu")
+    emb, det, _ = (_launches(rc, c) for c in model_chains(card.models))
+    rc.resblock_chain.launches = 0
+    wm = card.embed_batch(audio, bits)
+    got_bits, _ = card.detect_batch(wm)
+    launches = rc.resblock_chain.launches
+    ref_wm = cpu.embed_batch(audio, bits)
+    ref_bits, _ = cpu.detect_batch(wm)
+    logits = _logits(torch, card, wm)
+    ref_logits = _logits(torch, cpu, wm)
+    dev = max([float(np.abs(wm - ref_wm).max())]
+              + [float((a - b).abs().max()) for a, b in zip(logits, ref_logits)])
+    probs = torch.sigmoid(ref_logits[0].double()).mean(dim=1).numpy()  # [B, 16]
+    sure = np.abs(probs - 0.5) > 1e-3
+    same = bool((got_bits == ref_bits)[sure].all())
+    report["orbax_fixture"] = {"libzstd": path, "zstd_version": version,
+                               "read_s": read_s, "max_dev": dev, "same_bits": same,
+                               "decided_bits": int(sure.sum()), "launches": launches}
+    print(f"12 (i) orbax fixture on the card (libzstd {path}, version {version}): "
+          f"read in {read_s:.3f} s; batch {ORBAX_BATCH} embed+detect vs the CPU port: "
+          f"max |dev| {dev:.2e} (limit {RANDOM_INIT_TOL:.0e}), bits identical on "
+          f"{int(sure.sum())} decided bits: {same}; {launches} chain launches "
+          f"[{card_line()}]", flush=True)
+    if not (dev <= RANDOM_INIT_TOL and same) or launches != emb + det:
+        raise AssertionError(f"12 (i): {report['orbax_fixture']}, expected "
+                             f"{emb + det} launches")
+    return launches
+
+
+def check_orbax_r5(torch, rc, report, r5, server, audio, bits):
+    """Phase 12 (ii): r5 written as an orbax inference checkpoint with the
+    port's writer (into build/), served at batch 64 x 1 s bit for bit as
+    ``server`` (the ``.npz``'s) serves it, the launches those of one
+    embed+detect; the directory's bytes and the host seconds to write and
+    to read. Returns the launches."""
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+
+    root = ROOT / "build" / "orbax_r5"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    orbax_weights(r5, root / "latest")
+    write_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    wv = WaveVerify(root, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    emb, det, _ = _per_call(rc)
+    want = server.embed_batch(audio, bits)
+    want_bits, want_conf = server.detect_batch(want)
+    rc.resblock_chain.launches = 0
+    wm = wv.embed_batch(audio, bits)
+    got_bits, conf = wv.detect_batch(wm)
+    launches = rc.resblock_chain.launches
+    same = bool(np.array_equal(wm, want) and np.array_equal(got_bits, want_bits)
+                and np.array_equal(conf, want_conf))
+    shutil.rmtree(root, ignore_errors=True)
+    report["orbax_r5"] = {"bytes": size, "write_s": write_s, "read_s": read_s,
+                          "bit_for_bit": same, "launches": launches}
+    print(f"12 (ii) r5 as orbax ({size} bytes): written in {write_s:.3f} s, read "
+          f"and placed on the card in {read_s:.3f} s (host clock); batch {len(audio)} "
+          f"embed+detect bit for bit the .npz's: {same}; {launches} chain launches "
+          f"[{card_line()}]", flush=True)
+    if not same or launches != emb + det:
+        raise AssertionError(f"12 (ii): {report['orbax_r5']}, expected {emb + det}")
+    return launches
+
+
+def check_orbax_resume(torch, rc, report):
+    """Phase 12 (iii): ``python -m waveverify_torch.train --resume --device
+    cuda``'s entry point on a copy of the fixture's run directory for 2
+    steps: the log goes on from the fixture's step, the launches are the
+    steps' and the validations', and the run writes the port's ``state.pt``
+    at its last step. Returns the launches."""
+    from waveverify_torch.config import load_config
+    from waveverify_torch.models import WatermarkModels
+
+    cfg = load_config(ORBAX_FIXTURE / "config.yml")
+    emb, det, loc = (_launches(rc, c) for c in model_chains(WatermarkModels(cfg)))
+    start = json.loads((ORBAX_FIXTURE / "latest" / "meta.json").read_text())["step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "run"
+        shutil.copytree(ORBAX_FIXTURE, run)
+        lines, launches, wall = _cli_run(
+            torch, rc, ["--config", str(run / "config.yml"), "--resume", "--device",
+                        "cuda", "--max-steps", str(start + ORBAX_CLI_STEPS),
+                        "--log-every", "1", "--no-samples"], run)
+        meta = json.loads((run / "latest" / "meta.json").read_text())
+        wrote = (run / "latest" / "state.pt").exists()
+    steps = [r for r in lines if "loss" in r]
+    vals = [r for r in lines if "val/loss" in r]
+    _finite(lines, "12 (iii)")
+    expected = ORBAX_CLI_STEPS * 2 * (emb + det + loc) + len(vals) * (emb + 8 * (det + loc))
+    report["orbax_resume_cli"] = {"steps": [r["step"] for r in steps], "vals": len(vals),
+                                  "launches": launches, "expected": expected,
+                                  "wall_s": wall, "meta_step": meta["step"],
+                                  "state_pt": wrote}
+    print(f"12 (iii) --resume of the orbax fixture (step {start}) on the card: logged "
+          f"steps {[r['step'] for r in steps]}, {len(vals)} validation(s), {launches} "
+          f"chain launches (expected {expected}) in {wall:.1f} s; latest/state.pt at "
+          f"step {meta['step']}: {wrote} [{card_line()}]", flush=True)
+    if (len(steps) != ORBAX_CLI_STEPS or steps[0]["step"] < start
+            or launches != expected or not wrote
+            or meta["step"] != start + ORBAX_CLI_STEPS):
+        raise AssertionError(f"12 (iii): {report['orbax_resume_cli']}")
+    return launches
+
+
 def ab_times(tree: Path) -> int:
     """``--ab-times TREE``: the one-process times of the port in TREE (this
     checkout, or another commit's tree unpacked under ``build/``), for an
@@ -3489,6 +3690,30 @@ def main() -> int:
         path_launches["dp_cli"] = check_dp_cli(torch, rc, report, cli_run, cli, refused)
     report["phase11_s"] = time.perf_counter() - t11
     print(f"phase 11 in {report['phase11_s']:.1f} s")
+    # 12. the JAX trainer's orbax checkpoints: the committed fixture served,
+    # r5 written as orbax and served, --resume of the fixture's run, and the
+    # first resumed step card vs CPU
+    t12 = time.perf_counter()
+    from waveverify_torch.config import load_config
+    from waveverify_torch.models import WatermarkModels
+
+    path_launches["orbax_fixture"] = check_orbax_fixture(torch, rc, report)
+    path_launches["orbax_r5"] = check_orbax_r5(torch, rc, report, r5,
+                                               servers["float32"], audio, bits)
+    path_launches["orbax_resume_cli"] = check_orbax_resume(torch, rc, report)
+    # the first resumed step card vs CPU at phase 6's limits, each leaf and
+    # scalar also allowed four times the card's own spread (as phases 8 and
+    # 10 hold ill-conditioned generators): at the fixture's one-step state
+    # audio * (1 +- 1e-7) moves the tiny generator's norm by 2.0e-02 and a
+    # FiLM bias's gradient by 0.19 on an H100 80GB HBM3 at 700 W, while
+    # card vs CPU read 5.1e-03 and 5.6e-02
+    orbax_cfg = load_config(ORBAX_FIXTURE / "config.yml")
+    path_launches["orbax_resume_step"] = check_train_step(
+        torch, rc, report, label="orbax_resume_step_check", cfg=orbax_cfg,
+        chains=sum(model_chains(WatermarkModels(orbax_cfg)), []),
+        resume=ORBAX_FIXTURE, spread=True, scalar_spread=True)
+    report["phase12_s"] = time.perf_counter() - t12
+    print(f"phase 12 in {report['phase12_s']:.1f} s")
     report["launches_by_path"] = path_launches
     print(f"launches by path: {path_launches}")
 

@@ -12,7 +12,8 @@
   within 1e-5 (tiny config from a YAML, and r5's trained weights).
 - The constructor: random init from a seed (the JAX tree's keys and
   shapes), config precedence and its WARNING, the port's checkpoint
-  directories, the orbax refusal, no card.
+  directories, no card (the JAX trainer's orbax directories are served in
+  ``tests/test_torch_orbax.py``).
 """
 
 import json
@@ -267,19 +268,6 @@ def test_port_checkpoint_dirs_serve_their_weights(tmp_path):
         np.testing.assert_array_equal(wv.embed_batch(audio, bits), want)
         np.testing.assert_array_equal(wv.detect_batch(want)[1],
                                       ref.detect_batch(want)[1])
-
-
-@pytest.mark.parametrize("layout", ["tag", "root"])
-def test_orbax_directories_raise_naming_the_route(tmp_path, layout):
-    tag = tmp_path / "ckpt" / "latest"
-    (tag / "state").mkdir(parents=True)
-    (tag / "meta.json").write_text("{}")
-    path = tag if layout == "tag" else tag.parent
-    with pytest.raises(ValueError) as e:
-        WaveVerify(path, device="cpu")
-    for name in ("orbax", "waveverify_tpu.train.checkpoint.load_params",
-                 "waveverify_tpu.convert.save_weights_npz"):
-        assert name in str(e.value)
 
 
 def test_unknown_paths_raise(tmp_path):

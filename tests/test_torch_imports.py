@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+the orbax and tensorstore packages the JAX trainer checkpoints through."""
 
 import ast
 import subprocess
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "waveverify_tpu")
+FORBIDDEN = ("jax", "flax", "waveverify_tpu", "orbax", "tensorstore")
 
 
 def _port_sources():
@@ -31,7 +32,7 @@ def test_no_forbidden_imports_in_source(path):
 
 _PROGRAM = r"""
 import sys
-for name in ("jax", "flax", "jaxlib"):
+for name in ("jax", "flax", "jaxlib", "orbax", "tensorstore"):
     sys.modules[name] = None
 import numpy as np
 import torch
@@ -151,7 +152,17 @@ import waveverify_torch.parallel
 from waveverify_torch.parallel import initialize_distributed, is_active, make_mesh
 initialize_distributed()
 assert not is_active() and make_mesh(device="cpu").size == 1
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "waveverify_tpu")
+# orbax checkpoints, written and read back
+import tempfile
+from waveverify_torch.train import ocdbt
+tree = {"step": np.array(3, np.int32), "w": [np.arange(6, dtype=np.float32).reshape(2, 3)]}
+with tempfile.TemporaryDirectory() as tmp:
+    ocdbt.write_state(f"{tmp}/latest", tree, {"step": 3})
+    back, meta = ocdbt.read_state(f"{tmp}/latest")
+assert meta == {"step": 3} and int(back["step"]) == 3
+assert np.array_equal(back["w"][0], tree["w"][0])
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "flax", "waveverify_tpu", "orbax", "tensorstore")
           and sys.modules[m] is not None]
 assert not loaded, loaded
 print("OK")

@@ -20,6 +20,7 @@ global-batch program, and multi-device serving.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -222,6 +223,31 @@ def test_one_process_is_a_no_op():
     parallel.broadcast_tensors([w])
     parallel.barrier()
     assert w.grad.tolist() == [3.0, 3.0] and w.tolist() == [1.0, 1.0]
+
+
+def _record_threads(seen):
+    seen.append((torch.get_num_threads(), os.environ["RANK"], os.environ["WORLD_SIZE"]))
+
+
+@pytest.mark.parametrize("omp, threads", [(None, 1), ("3", 3)])
+def test_spawned_rank_takes_omp_num_threads_else_one(monkeypatch, omp, threads):
+    """A rank ``spawn`` starts gets ``OMP_NUM_THREADS`` threads when it is
+    set, else one, as torchrun gives each rank: never a share of the
+    host's cores, which oversubscribes a loaded host."""
+    from waveverify_torch.parallel.mesh import _spawned
+
+    for name in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.setenv(name, "")
+    if omp is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    before, seen = torch.get_num_threads(), []
+    try:
+        _spawned(1, (__name__, "_record_threads"), 4, 12345, (seen,))
+    finally:
+        torch.set_num_threads(before)
+    assert seen == [(threads, "1", "4")]
 
 
 def test_make_mesh_checks_the_device_count():

@@ -580,9 +580,3 @@ def test_set_values_read_the_same_without_yaml():
     assert [got[k] for k in "abcdefg"] == ["0x10", ".inf", "0.5", "x", True,
                                            None, -3]
     assert (outs[0][1], outs[1][1]) == ("list read", "list refused")
-
-
-def test_resume_refuses_an_orbax_checkpoint(tmp_path):
-    (tmp_path / "run" / "latest" / "state").mkdir(parents=True)
-    with pytest.raises(ValueError, match="orbax"):
-        main(_args(tmp_path, "--max-steps", "1", "--resume"))

@@ -14,8 +14,8 @@ __all__ = ["WaveVerify", "WatermarkID"]
 
 def __getattr__(name):
     # the converter reads torch checkpoints; imported on first use
-    if name == "convert_torch_checkpoint":
-        from waveverify_torch.convert import convert_torch_checkpoint
+    if name in ("convert_torch_checkpoint", "save_converted"):
+        from waveverify_torch import convert
 
-        return convert_torch_checkpoint
+        return getattr(convert, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

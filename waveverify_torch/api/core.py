@@ -12,9 +12,9 @@ is passed.
 
 Weights come from a ``save_weights_npz`` file, a reference ``.pth`` (the
 paper's checkpoint format, converted by ``waveverify_torch.convert``), a
-checkpoint directory of the port's trainer, or random initialisation from
-a seed; the JAX trainer's orbax directories are refused with the route to
-an ``.npz``. After :meth:`WaveVerify.use_mesh`, ``embed_batch`` and
+checkpoint directory of the port's trainer or of the JAX trainer (orbax,
+read without JAX by ``waveverify_torch.train.ocdbt``), or random
+initialisation from a seed. After :meth:`WaveVerify.use_mesh`, ``embed_batch`` and
 ``detect_batch`` split the batch across several devices, as the JAX
 package's do over its data mesh.
 """
@@ -78,13 +78,15 @@ class WaveVerify:
         - a reference PyTorch ``.pth`` / ``.pt`` / ``.ckpt``, converted on
           load (it carries no snapshot: the architecture comes from
           ``config_path`` / ``config``);
-        - a checkpoint directory of the port's trainer: a tag directory
-          holding ``weights.npz``, or a root holding ``latest/``;
+        - a checkpoint directory of the port's trainer (a tag directory
+          holding ``weights.npz``) or of the JAX trainer (an orbax tag
+          directory holding ``state/``, whose ``wm_params`` are read), or
+          a root holding such a ``latest/``; the architecture comes from
+          its ``meta.json``'s ``model_config`` where it has one;
         - ``None``: random initialisation from ``seed`` (drawn on a CPU
           generator, so a seed gives the same weights on every device);
           embedding works end to end, detection needs trained weights.
-        An orbax directory of the JAX trainer raises, naming the JAX
-        functions that turn it into an ``.npz``.
+        A missing, extra or misshapen weight raises.
     config_path: a YAML of the ``conf/base.yml`` schema. config: a
         ``TrainConfig``. An explicit ``config`` wins; otherwise the
         checkpoint's snapshot overrides the YAML's (or the defaults')
@@ -112,7 +114,7 @@ class WaveVerify:
             set_conv_precision(precision)
         path = None if checkpoint_path is None else Path(checkpoint_path)
         is_pth = path is not None and path.suffix in (".pth", ".pt", ".ckpt")
-        flat, snap = (None, None) if path is None or is_pth else self._read_npz(path)
+        flat, snap = (None, None) if path is None or is_pth else self._read_weights(path)
         self.config = config if config is not None else load_config(config_path)
         if config is None and snap:
             if config_path is not None:
@@ -137,8 +139,12 @@ class WaveVerify:
                 logger.info("converting PyTorch checkpoint %s", path)
                 flat = flatten(convert_torch_checkpoint(path, self.config,
                                                         models=self.models))
+            consumed = set()
             for net in ("generator", "detector", "locator"):
-                load_params(getattr(self.models, net), flat, net)
+                consumed |= load_params(getattr(self.models, net), flat, net)
+            extra = sorted(set(flat) - consumed)
+            if extra:
+                raise KeyError(f"{path}: entries no network takes: {extra[:5]}")
         self.models.requires_grad_(False)
         self.models.eval().to(self.device)
         self.sample_rate = self.config.generator.sample_rate
@@ -191,35 +197,34 @@ class WaveVerify:
     # -- checkpoints ---------------------------------------------------------------
 
     @staticmethod
-    def _weights_file(path: Path) -> Optional[Path]:
-        """The ``weights.npz`` of a port checkpoint directory (a tag
-        directory, or a root holding ``latest/``); raises on an orbax
-        directory."""
-        from waveverify_torch.train.checkpoint import orbax_refusal
-
-        for tag_dir in (path, path / "latest"):
-            if (tag_dir / "state").is_dir():
-                raise ValueError(orbax_refusal(tag_dir))
-            if (tag_dir / "weights.npz").exists():
-                return tag_dir / "weights.npz"
-        return None
-
-    @classmethod
-    def _read_npz(cls, path: Path):
+    def _read_weights(path: Path):
         """(flat flax-named arrays, architecture snapshot or None) of an
-        ``.npz`` or of a checkpoint directory's ``weights.npz``; a
-        directory's snapshot falls back to its ``meta.json``'s
-        ``model_config``."""
+        ``.npz``, or of a checkpoint directory: the port trainer's (its
+        ``weights.npz``) or the JAX trainer's orbax one (its ``wm_params``),
+        each a tag directory or a root holding ``latest/``. A directory's
+        snapshot falls back to its ``meta.json``'s ``model_config``."""
         import json
 
-        npz = path if path.suffix == ".npz" else (
-            cls._weights_file(path) if path.is_dir() else None)
-        if npz is None:
+        from waveverify_torch.train.ocdbt import read_params
+
+        flat = snap = None
+        if path.suffix == ".npz":
+            logger.info("loading %s", path)
+            flat, snap = read_npz(path)
+        elif path.is_dir():
+            for tag_dir in (path, path / "latest"):
+                if (tag_dir / "state").is_dir():
+                    logger.info("loading orbax checkpoint %s", tag_dir)
+                    flat = flatten(read_params(tag_dir))
+                    break
+                if (tag_dir / "weights.npz").exists():
+                    logger.info("loading %s", tag_dir / "weights.npz")
+                    flat, snap = read_npz(tag_dir / "weights.npz")
+                    break
+        if flat is None:
             raise FileNotFoundError(
                 f"no checkpoint found at {path} (expected a .npz, a .pth, or "
-                "a checkpoint directory of the port's trainer)")
-        logger.info("loading %s", npz)
-        flat, snap = read_npz(npz)
+                "a checkpoint directory of the port's or the JAX trainer)")
         for meta in (path / "meta.json", path / "latest" / "meta.json"):
             if not snap and path.is_dir() and meta.exists():
                 snap = json.loads(meta.read_text()).get("model_config")

@@ -23,8 +23,9 @@ config (the JAX package's converter assumes weight norm and no
 ``spec.weight`` and ``scale_param`` keep their names; see
 :func:`_norm_conv` for each norm's leaves.
 
-Orbax directories are not read here (that needs JAX); the JAX package's
-``save_weights_npz`` makes an ``.npz`` the port reads.
+:func:`save_converted` writes the converted weights as an orbax inference
+checkpoint (``<out_dir>/latest``, through ``train.ocdbt``), which both
+packages' ``WaveVerify`` and the JAX package's ``load_params`` read.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
-from waveverify_torch.config import TrainConfig
+from waveverify_torch.config import TrainConfig, model_config_dict
+from waveverify_torch.train.ocdbt import write_state
 
 logger = logging.getLogger(__name__)
 
@@ -419,3 +421,23 @@ def _conform_tree(ref: Any, got: Any, path: str = "") -> Any:
         raise ValueError(
             f"shape mismatch at {path}: expected {tuple(ref)}, got {got_shape}")
     return got
+
+
+def save_converted(path: Union[str, Path], out_dir: Union[str, Path],
+                   cfg: Optional[TrainConfig] = None) -> Path:
+    """Convert a ``.pth`` checkpoint and save it as an orbax inference
+    checkpoint, ``<out_dir>/latest`` (returned), which
+    ``WaveVerify(out_dir)`` of either package serves (the counterpart of
+    the JAX package's ``save_converted``).
+
+    The tag holds ``step`` (0) and ``wm_params``, the fields the JAX
+    package's ``load_params`` restores, and a ``meta.json`` with the
+    source and the architecture (``model_config``). It leaves out the fresh
+    optimizer state and the random discriminator that the JAX package's
+    version adds, which carry nothing of the ``.pth``."""
+    if cfg is None:
+        cfg = TrainConfig()
+    wm_params = convert_torch_checkpoint(path, cfg)
+    return write_state(Path(out_dir) / "latest",
+                       {"step": np.asarray(0, np.int32), "wm_params": wm_params},
+                       {"source": str(path), "model_config": model_config_dict(cfg)})

@@ -303,14 +303,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_threads() -> int:
+    """A spawned rank's CPU threads: ``OMP_NUM_THREADS`` when it is set,
+    else one, as torchrun gives each of several ranks."""
+    return int(os.environ.get("OMP_NUM_THREADS") or 1)
+
+
 def _spawned(index: int, target: Tuple[str, str], n: int, port: int,
              args: tuple) -> None:
     import importlib
 
     os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    # the ranks share the host's cores (torchrun gives each one thread)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    torch.set_num_threads(rank_threads())
     module, name = target
     getattr(importlib.import_module(module), name)(*args)
 
@@ -318,9 +323,9 @@ def _spawned(index: int, target: Tuple[str, str], n: int, port: int,
 def spawn(fn, n: int, *args) -> None:
     """Run ``fn(*args)`` in ``n`` fresh processes, rank ``i`` with
     torchrun's environment (``RANK`` = ``LOCAL_RANK`` = i, ``WORLD_SIZE``
-    = n, a rendezvous on localhost) and 1/n of the host's cores for its
-    CPU threads, and wait for all of them. A rank that
-    raises ends the others, and its error is raised here
+    = n, a rendezvous on localhost) and :func:`rank_threads` CPU threads
+    (``OMP_NUM_THREADS``, else one, as torchrun), and wait for all of
+    them. A rank that raises ends the others, and its error is raised here
     (``torch.multiprocessing.ProcessRaisedException``). ``fn`` must be a
     module-level function; the ranks import it by name (from the module
     ``python -m`` ran, when it lives there)."""

@@ -7,9 +7,13 @@
     <ckpt_dir>/<tag>/weights.npz   the watermarking networks in the JAX
                                    package's save_weights_npz format
 
-A tag is written into a temporary directory and renamed into place. The
-JAX package's orbax checkpoints are not read (reading them needs JAX):
-:func:`orbax_refusal` names the JAX package's route to an ``.npz``.
+A tag is written into a temporary directory and renamed into place.
+:func:`load_checkpoint` also takes a tag of the JAX trainer, an orbax
+directory (``state/`` and ``meta.json``), read without JAX by
+:mod:`waveverify_torch.train.ocdbt`: its parameters, step, AdamW moments
+and schedule positions (``state.load_jax_state``), or, when its optimizer
+trees have another layout than the config builds, its parameters and step
+alone with fresh optimizers, as the JAX loop resumes then.
 
 In a data-parallel run (``waveverify_torch.parallel``) the training loop
 has rank 0 alone write, while the other ranks wait at a barrier; on resume
@@ -20,6 +24,7 @@ broadcast, so the replicas start equal.
 from __future__ import annotations
 
 import json
+import logging
 import shutil
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -28,19 +33,11 @@ import torch
 
 from waveverify_torch.config import TrainConfig, model_config_dict
 from waveverify_torch.models import WatermarkModels
-from waveverify_torch.train.state import WM_NETS, TrainState
+from waveverify_torch.train.ocdbt import read_state
+from waveverify_torch.train.state import WM_NETS, TrainState, load_jax_state
 from waveverify_torch.weights import export_params, load_params, read_npz, write_npz
 
-
-def orbax_refusal(path: Union[str, Path]) -> str:
-    """The error for an orbax checkpoint directory, with the route from it
-    to a weights ``.npz`` the port reads."""
-    return (f"{path} is an orbax checkpoint of the JAX trainer, which the "
-            "port does not read (it needs JAX). Convert it where JAX runs: "
-            "params = waveverify_tpu.train.checkpoint.load_params(<ckpt root>, "
-            "<tag>), then waveverify_tpu.convert.save_weights_npz(params, "
-            "'weights.npz', config=<its TrainConfig>); the port reads that "
-            ".npz (WaveVerify, --init-weights).")
+logger = logging.getLogger(__name__)
 
 
 def save_weights(models: WatermarkModels, path: Union[str, Path],
@@ -86,14 +83,20 @@ def save_checkpoint(ckpt_dir: Union[str, Path], tag: str, state: TrainState,
     return target
 
 
-def load_checkpoint(ckpt_dir: Union[str, Path], tag: str,
-                    state: TrainState) -> Dict[str, Any]:
-    """Restore ``tag`` into ``state`` (built from the same config) and
-    return its host state."""
+def load_checkpoint(ckpt_dir: Union[str, Path], tag: str, state: TrainState,
+                    cfg: TrainConfig) -> Dict[str, Any]:
+    """Restore ``tag`` (the port's, or the JAX trainer's orbax tag) into
+    ``state``, built from ``cfg``, and return its host state."""
     path = Path(ckpt_dir) / tag
     if not (path / "state.pt").exists():
         if (path / "state").is_dir():
-            raise ValueError(orbax_refusal(path))
+            raw, meta = read_state(path)
+            if not load_jax_state(state, raw, cfg.optim):
+                logger.warning("full-state resume failed (optimizer structure "
+                               "changed) - params-only resume, optimizer state "
+                               "starts fresh")
+            state.step = int(meta.get("step", state.step))
+            return meta
         raise FileNotFoundError(f"no checkpoint at {path}")
     device = next(state.models.parameters()).device
     state.load_state_dict(torch.load(path / "state.pt", map_location=device,

@@ -731,7 +731,7 @@ def train(cfg: TrainConfig, trainer: TrainerConfig = TrainerConfig(),
     resumed = resume and "latest" in ckpt.checkpoint_tags(trainer.ckpt_dir)
     if resumed:
         parallel.barrier()
-        meta = ckpt.load_checkpoint(trainer.ckpt_dir, "latest", state)
+        meta = ckpt.load_checkpoint(trainer.ckpt_dir, "latest", state, cfg)
         _restore_controllers(meta, scheduler, ramp, curr)
         tracker.best_val_loss = float(meta.get("best_val_loss", float("inf")))
         logger.info("resumed from step %d", state.step)

@@ -8,13 +8,23 @@ transition_steps=1, rate=gamma)``, is torch's ``AdamW`` with an
 (m_hat / (sqrt(v_hat) + eps) + wd * p)`` with ``lr_t = lr * gamma^t``. The
 decay mask (``msg_*`` / ``film_*`` exempt while ``decay_exclude_msg_path``)
 and the per-network learning-rate multipliers become parameter groups.
+
+:func:`load_jax_state` carries a JAX TrainState (as
+``waveverify_torch.train.ocdbt.read_state`` reads it from an orbax
+checkpoint) into a :class:`TrainState`: the optax chain's state
+``[ScaleByAdamState(count, mu, nu), MaskedState, ScaleByScheduleState(count)]``
+becomes each parameter's ``step`` / ``exp_avg`` / ``exp_avg_sq`` and the
+schedule's position; under the per-network multipliers the watermarking
+optimizer is an ``optax.multi_transform`` holding one such chain per
+network (``inner_states.<net>.inner_state``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.optim import AdamW
 from torch.optim.lr_scheduler import ExponentialLR
@@ -22,6 +32,7 @@ from torch.optim.lr_scheduler import ExponentialLR
 from waveverify_torch.config import OptimConfig, TrainConfig
 from waveverify_torch.models import WatermarkModels
 from waveverify_torch.modules.conv import init_params
+from waveverify_torch.weights import flatten, load_params, torch_arrays
 
 WEIGHT_DECAY = 0.01
 EPS = 1e-8
@@ -116,3 +127,93 @@ def create_train_state(cfg: TrainConfig, generator: torch.Generator,
         [{"params": list(models.discriminator.parameters())}], cfg.optim)
     return TrainState(models, wm_opt, wm_sched, disc_opt, disc_sched)
 
+
+
+def _adamw_chain(tree: Any) -> Optional[Tuple[Any, Any, Any, Any]]:
+    """(count, mu, nu, schedule count) of an optax ``adamw`` chain's
+    state, or None when ``tree`` is not one."""
+    try:
+        adam, masked, sched = tree
+        if set(adam) != {"count", "mu", "nu"} or set(sched) != {"count"}:
+            return None
+        if set(masked) != {"inner_state"}:
+            return None
+        return adam["count"], adam["mu"], adam["nu"], sched["count"]
+    except (TypeError, ValueError, KeyError):
+        return None
+
+
+def _wm_chains(tree: Any, multi: bool) -> Optional[Dict[str, Tuple[Any, Any, Any, Any]]]:
+    """Each watermarking network's (count, mu, nu, schedule count) in the
+    layout the config builds, or None when the tree has another."""
+    if multi:
+        inner = tree.get("inner_states") if isinstance(tree, dict) else None
+        if not isinstance(inner, dict) or set(inner) != set(WM_NETS):
+            return None
+        chains = {net: _adamw_chain(inner[net].get("inner_state"))
+                  for net in WM_NETS}
+        if any(c is None for c in chains.values()):
+            return None
+        return {net: (c[0], c[1][net], c[2][net], c[3]) for net, c in chains.items()}
+    chain = _adamw_chain(tree)
+    if chain is None:
+        return None
+    return {net: (chain[0], chain[1][net], chain[2][net], chain[3]) for net in WM_NETS}
+
+
+def _set_adam(opt: AdamW, module: torch.nn.Module, net: str, count: Any,
+              mu: Any, nu: Any) -> None:
+    """AdamW's state of ``module``'s parameters from optax's moments (flax
+    layouts) and update count."""
+    m, _ = torch_arrays(module, flatten(mu, net), net)
+    v, _ = torch_arrays(module, flatten(nu, net), net)
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(m[name], dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(v[name], dtype=p.dtype, device=p.device)}
+
+
+def _set_schedule(opt: AdamW, sched: ExponentialLR, counts: Dict[str, int]) -> None:
+    """Each group's learning rate after ``counts[<its network>]`` decays,
+    and the schedule's position."""
+    for group in opt.param_groups:
+        t = counts[group.get("name", "discriminator").split("/")[0]]
+        group["lr"] = group["initial_lr"] * sched.gamma ** t
+    sched.last_epoch = max(counts.values())
+    sched._last_lr = [group["lr"] for group in opt.param_groups]
+
+
+def load_jax_state(state: TrainState, raw: Dict[str, Any], cfg: OptimConfig) -> bool:
+    """Carry the JAX TrainState tree ``raw`` into ``state`` (built from the
+    same config): ``wm_params`` and ``disc_params`` into the networks
+    (a missing, extra or misshapen leaf raises) and ``step``; and, when
+    both optimizer trees have the layouts ``cfg`` builds, their moments,
+    counts and schedule positions. Returns whether the optimizer state was
+    carried; when not, the optimizers stay fresh, as the JAX loop's
+    params-only resume leaves them."""
+    models = state.models
+    flat = flatten(raw["wm_params"])
+    consumed = set()
+    for net in WM_NETS:
+        consumed |= load_params(getattr(models, net), flat, net)
+    extra = sorted(set(flat) - consumed)
+    if extra:
+        raise KeyError(f"wm_params entries no network takes: {extra[:5]}")
+    load_params(models.discriminator, flatten(raw["disc_params"], "discriminator"),
+                "discriminator")
+    state.step = int(np.asarray(raw["step"]))
+    # the JAX package builds an optax.multi_transform when a multiplier is set
+    multi = cfg.detector_lr_mult != 1.0 or cfg.generator_lr_mult != 1.0
+    wm = _wm_chains(raw.get("wm_opt_state"), multi)
+    disc = _adamw_chain(raw.get("disc_opt_state"))
+    if wm is None or disc is None:
+        return False
+    for net, (count, mu, nu, _) in wm.items():
+        _set_adam(state.wm_opt, getattr(models, net), net, count, mu, nu)
+    _set_schedule(state.wm_opt, state.wm_sched,
+                  {net: int(np.asarray(c[3])) for net, c in wm.items()})
+    _set_adam(state.disc_opt, models.discriminator, "discriminator", *disc[:3])
+    _set_schedule(state.disc_opt, state.disc_sched,
+                  {"discriminator": int(np.asarray(disc[3]))})
+    return True

@@ -116,15 +116,16 @@ def write_npz(path: Union[str, Path], flat: Mapping[str, np.ndarray],
     return path
 
 
-def load_params(module: nn.Module, flat: Mapping[str, np.ndarray],
-                prefix: str) -> Set[str]:
-    """Copy every ``flat`` entry under ``prefix/`` into ``module``.
+def torch_arrays(module: nn.Module, flat: Mapping[str, np.ndarray],
+                 prefix: str) -> Tuple[Dict[str, np.ndarray], Set[str]]:
+    """``flat``'s entries under ``prefix/`` by the dotted names of
+    ``module``'s parameters, in torch layouts, and the keys consumed.
 
-    Returns the keys consumed. Raises if an entry names no parameter, if a
-    shape disagrees, or if a parameter of ``module`` is left unset."""
+    Raises if an entry names no parameter, if a shape disagrees, or if a
+    parameter of ``module`` has no entry."""
     params = dict(module.named_parameters())
+    out: Dict[str, np.ndarray] = {}
     consumed: Set[str] = set()
-    seen: Set[str] = set()
     for key, value in flat.items():
         if not key.startswith(prefix + "/"):
             continue
@@ -134,14 +135,23 @@ def load_params(module: nn.Module, flat: Mapping[str, np.ndarray],
         full = ".".join(path[:-1] + [name])
         if full not in params:
             raise KeyError(f"{key}: no parameter {full} in {type(module).__name__}")
-        p = params[full]
-        if tuple(p.shape) != arr.shape:
-            raise ValueError(f"{key}: shape {arr.shape} != {tuple(p.shape)}")
-        with torch.no_grad():
-            p.copy_(torch.from_numpy(np.array(arr, np.float32)))
+        if tuple(params[full].shape) != arr.shape:
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(params[full].shape)}")
+        out[full] = arr
         consumed.add(key)
-        seen.add(full)
-    missing = sorted(set(params) - seen)
+    missing = sorted(set(params) - set(out))
     if missing:
         raise KeyError(f"parameters not in the checkpoint under {prefix}/: {missing}")
+    return out, consumed
+
+
+def load_params(module: nn.Module, flat: Mapping[str, np.ndarray],
+                prefix: str) -> Set[str]:
+    """Copy every ``flat`` entry under ``prefix/`` into ``module``
+    (:func:`torch_arrays`'s checks). Returns the keys consumed."""
+    arrays, consumed = torch_arrays(module, flat, prefix)
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for full, arr in arrays.items():
+            params[full].copy_(torch.from_numpy(np.array(arr, np.float32)))
     return consumed
