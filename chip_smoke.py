@@ -3,11 +3,16 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compile csrc/resblock_chain.cu for sm_90a with nvcc;
+  2. build: compile csrc/resblock_chain.cu for sm_90a with nvcc; ptxas's
+     registers and spills per instantiation (any spill fails), HGMMA in
+     the SASS of every wgmma instantiation (cuobjdump; none fails), and
+     per main-path width the route, ring stages, shared memory per CTA and
+     CTAs per SM;
   3. kernel vs plain version on the card: the 12 resblock chains of
      embed+detect at batch 2, the locator's two chains at batch 2, the
      widest-T chains of a long-audio window (T = 176000) at batch 1, ragged
-     tiles with M = 1/2/3 and non-zero biases, narrow widths (C = 32, 48), a
+     tiles with M = 1/2/3 and non-zero biases, M = 1/2/3 at every width the
+     wgmma route takes, narrow widths (C = 32, 48), a
      T shorter than the halo, f32 (TF32 off) and bf16, and the autograd
      Function's gradients; then chains off the shipped configs through the
      seanet gate (ROUTE_CHAINS): C = 1024 on the plain path, C = 40 and 24
@@ -28,9 +33,11 @@ Phases, each fatal on failure:
   5. times (CUDA events, after warm-up): embed+detect and locate clips/s at
      batch 64, the host time to submit one call, the device's busy share,
      the long-audio path's seconds and real-time factor, the sweep's wall
-     seconds with its host share, and per chain shape the kernel, the plain
-     version, the bound, the product's rows per pass, registers and CTAs
-     per SM, and the chain's C x C products alone through torch.matmul;
+     seconds with its host share, and per chain shape the route, the
+     kernel, the other route where it can run the width, the plain
+     version, the bound and the share of it reached, the product's rows
+     per pass, ring stages, shared memory, registers and CTAs per SM, and
+     the chain's C x C products alone through torch.matmul;
   6. training at TrainConfig() (conf/base.yml, full width), f32 with TF32
      off: at each of its 10 chain shapes, the kernel's autograd Function
      inside torch.utils.checkpoint against the plain version's gradients
@@ -116,7 +123,9 @@ Phases, each fatal on failure:
      for 2 steps, and the first resumed step card vs CPU (phase 6's
      limits, or four times the card's own spread where that is larger).
 
-With --kernel-only the run stops after phase 3 and prints no result line.
+With --kernel-only the run stops after phase 3 and prints no result line;
+with --kernel-times it runs phase 5's chain table after phase 3 and stops
+there (both routes per width, bf16, the plans; about 90 s on an H100).
 With --ab-times TREE it only times the one-process paths of the port in
 TREE (see ab_times) and prints one JSON line.
 
@@ -331,6 +340,310 @@ def chain_cost(b, t, c, m, itemsize, k=5):
     flops = m * 2 * b * t * c * (2 * c + 2 * k)
     nbytes = itemsize * (2 * b * t * c + m * (2 * c * c + 2 * k * c + 2 * c))
     return flops, nbytes
+
+
+def _sass_functions(lib):
+    """{function name: its SASS} of the built library (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def check_build(rc, report):
+    """Phase 2: build the library, then read ptxas's log (registers, shared
+    memory, spills per instantiation; any spill fails), the SASS (every
+    wgmma instantiation must hold HGMMA) and, per main-path width, the
+    route, ring stages, shared memory per CTA and CTAs per SM."""
+    t0 = time.perf_counter()
+    lib = rc.build()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"build: {lib.name} in {report['build_s']:.1f} s")
+    ptxas = (lib.parent / f"{lib.stem}.log").read_text()
+    kernels_built = []
+    for entry, stack, stores, loads, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
+        io = "bf16" if "bfloat16" in entry else "f32"
+        a, b, minb, k = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()
+        kernels_built.append({"entry": entry, "io": io,
+                              "route": "wgmma" if "wgmma_kernel" in entry else "mma",
+                              "tiling": [int(a), int(b)], "k": int(k),
+                              "min_ctas_per_sm": int(minb), "registers": int(regs),
+                              "spill_store_bytes": int(stores),
+                              "spill_load_bytes": int(loads), "stack_bytes": int(stack)})
+    report["ptxas"] = kernels_built
+    print("ptxas (route tiling, min CTAs/SM, k: registers f32 / bf16): " + ", ".join(
+        f"{k['route']} {k['tiling'][0]}x{k['tiling'][1]},{k['min_ctas_per_sm']},k={k['k']}: "
+        + " / ".join(str(j["registers"]) for j in kernels_built
+                     if (j["route"], j["tiling"], j["k"]) == (k["route"], k["tiling"], k["k"]))
+        for k in kernels_built if k["io"] == "f32"))
+    # every function of the log, the kernels' device functions included
+    spilled = [(name[-60:], int(st), int(ld)) for name, st, ld in re.findall(
+        r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) bytes spill "
+        r"stores, (\d+) bytes spill loads", ptxas) if int(st) or int(ld)]
+    advisories = sorted({ln.strip() for ln in ptxas.splitlines()
+                         if "wgmma" in ln and "Compiling" not in ln
+                         and "Function properties" not in ln})
+    report["ptxas_wgmma_advisories"] = advisories
+    print(f"ptxas: {len(kernels_built)} kernels, spills (function, bytes stored, "
+          f"loaded): {spilled or 'none'}; wgmma advisories: {advisories or 'none'}")
+    expected = 2 * (len(rc._TILINGS) + len(rc._WG_TILINGS)) * len(rc.KERNEL_SIZES)
+    if len(kernels_built) != expected:
+        raise AssertionError(f"ptxas log lists {len(kernels_built)} instantiations, "
+                             f"not {expected}")
+    if spilled:
+        raise AssertionError("ptxas spilled registers in some instantiation")
+    sass = _sass_functions(lib)
+    hgmma = {name: text.count("HGMMA") for name, text in sass.items()
+             if "wgmma_kernel" in name}
+    report["sass_hgmma"] = hgmma
+    print(f"SASS: HGMMA per wgmma instantiation {sorted(hgmma.values())}, HMMA per "
+          "mma.sync instantiation " + str(sorted(text.count("HMMA") for name, text in
+                                                 sass.items() if "wgmma" not in name
+                                                 and "chain_kernel" in name)))
+    wg_built = [k for k in kernels_built if k["route"] == "wgmma"]
+    if len(hgmma) != len(wg_built) or not all(hgmma.values()):
+        raise AssertionError(f"a wgmma instantiation holds no HGMMA: {hgmma}")
+    widths = {}
+    for t, c, m in list(dict.fromkeys(CHAINS)) + LOC_ENC:
+        plan = rc.chain_plan(c, m, 5)
+        rows = plan[0][0] * 8 + min(plan[0][1], t)
+        kind, tiling = rc.product_route(c)
+        regs, ctas, smem = rc.kernel_info(c, rows)
+        widths[c] = {"route": kind, "tiling": list(tiling[:2]), "slab_rows": rows,
+                     "rows_per_pass": rc.rows_per_pass(c),
+                     "ring_stages": [rc.ring_stages(c, rows), rc.ring_stages(c, rows, True)],
+                     "smem_per_cta": smem, "registers": regs, "ctas_per_sm": ctas}
+    report["routes_by_width"] = widths
+    print("routes by width (route tiling, rows per pass of slab rows, ring stages f32/bf16, "
+          "smem per CTA, registers, CTAs/SM): " + "; ".join(
+              f"C={c} {w['route']} {w['tiling'][0]}x{w['tiling'][1]}, {w['rows_per_pass']} of "
+              f"{w['slab_rows']}, {w['ring_stages'][0]}/{w['ring_stages'][1]}, "
+              f"{w['smem_per_cta']} B, {w['registers']}, {w['ctas_per_sm']}"
+              for c, w in sorted(widths.items())))
+
+
+def check_kernel(torch, rc, report):
+    """Phase 3: the kernel against its plain version, f32 (TF32 off) and
+    bf16, at the main path's, the locator's and the long-audio window's
+    shapes, ragged tiles, narrow widths, M = 1/2/3 at every width the
+    wgmma route takes, the autograd Function's gradients, and the routes
+    through the seanet gate."""
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs_by_width = {}
+    shapes = [(2, t, c, m) for t, c, m in CHAINS]
+    shapes += [(2, 1000, 64, 1), (2, 777, 128, 2), (2, 131, 96, 3),
+               (2, 100, 768, 3)]  # ragged
+    # few n-tiles and idle warps; all of tile 0's halo is padding; batch 1
+    shapes += [(2, 300, 32, 1), (2, 300, 48, 2), (2, 20, 96, 3), (2, 20, 768, 3),
+               (1, 1000, 128, 2)]
+    # the locator's chains; a long-audio window's widest-T chains at batch 1
+    shapes += [(2, t, c, m) for t, c, m in LOC_ENC]
+    shapes += [(1, WINDOW, 32, 1), (1, WINDOW, 64, 2)]
+    # M = 1/2/3 at every wgmma width, on a ragged last tile
+    shapes += [(2, 333, c, m) for c in sorted(rc._WGMMA_WIDTHS) for m in (1, 2, 3)]
+    for i, (b, t, c, m) in enumerate(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ws, ps = chain_inputs(torch, b, t, c, m, i, dtype)
+            y = rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
+            ref = rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[1]
+            err = check_close(torch, y, ref, f"chain B={b} T={t} C={c} M={m} {name}")
+            errs[name] = max(errs[name], err)
+            if dtype == torch.float32:
+                errs_by_width[c] = max(errs_by_width.get(c, 0.0), err)
+    x, ws, ps = chain_inputs(torch, 2, 64, 16, 2, 99, torch.float32)
+    leaves = [x] + ws
+    for v in leaves:
+        v.requires_grad_(True)
+    slots = [tuple(w[j] for w in ws) for j in range(2)]
+    y = rc.fused_resblock_chain(x, rc.stack_chain_weights(slots, x.dtype),
+                                prescales=ps, res_scale=RES_SCALE)
+    g_k = torch.autograd.grad(y.square().sum(), leaves)
+    y_ref = rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
+    g_r = torch.autograd.grad(y_ref.square().sum(), leaves)
+    for a, b in zip(g_k, g_r):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    report["kernel_check_max_abs_err"] = errs
+    report["kernel_check_f32_max_abs_err_by_width"] = errs_by_width
+    print(f"kernel vs plain: {len(shapes)} shapes x f32/bf16 ok, max |err| "
+          f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; gradients ok")
+    print(f"kernel vs plain, f32 max |err| by width (limit {F32_DRIFT:.1e}, half of "
+          "atol): " + ", ".join(f"C={c} {e:.2e} ({rc.product_route(c)[0]})"
+                                for c, e in sorted(errs_by_width.items())))
+    check_routes(torch, rc, report)
+
+
+def other_route(rc, c):
+    """The route width c does not take, where it can run c: mma.sync at a
+    wgmma width; at an mma.sync width, a compiled wgmma tiling of the same
+    CTAs per SM whose column blocks divide c and fit one sweep."""
+    kind, tiling = rc.product_route(c)
+    if kind == "wgmma":
+        return "mma", rc.product_tiling(c)
+    for nb, units, ctas in rc._WG_TILINGS:
+        if ctas == tiling[2] and c % nb == 0 and (2 * units) % (c // nb) == 0:
+            return "wgmma", (nb, units, ctas)
+    return None
+
+
+# two plans of one chain closer than this are one plan within the card's
+# run-to-run spread (1-2% between calls at these shapes)
+PLAN_NOISE = 0.02
+
+
+def time_chains(torch, rc, report, card):
+    """Phase 5's chain table: per chain shape of embed+detect and locate at
+    batch 64, f32, the route, rows per pass, ring stages, the kernel's ms,
+    the other route's ms where it can run the width, the plain version's,
+    the bound, and the C x C products alone by torch.matmul. Returns the
+    embed+detect sums and the bound of the kernels JSON line."""
+    def bounds(flops, nbytes):
+        """(FMA bound, bound, bound_by) in seconds: the f32 FMA rate the first
+        kernel was held to, and the split-TF32 tensor-core rate it runs at now."""
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS
+        return (max(flops / PEAK_F32_FLOPS, t_bytes), max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def products_matmul_ms(x, ws, m, allow_tf32):
+        """The chain's 2 m C x C products alone, each as one torch.matmul
+        over x: what the library's GEMM takes for the kernel's main work."""
+        mats = [ws[j][i].t().contiguous() for i in range(m) for j in (0, 3)]
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        ms = cuda_time(torch, lambda: [torch.matmul(w, x) for w in mats], 3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return ms
+
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0,
+           "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0, "other_ms": 0.0}
+    unique = list(dict.fromkeys(CHAINS))
+    loc_tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+    # embed+detect's shapes, then the locator's (not in the embed+detect sums)
+    for i, (t, c, m) in enumerate(unique + LOC_ENC):
+        count = CHAINS.count((t, c, m))
+        path = "embed_detect" if count else "locate"
+        x, ws, ps = chain_inputs(torch, BATCH, t, c, m, 100 + i, torch.float32)
+        run_k = lambda: rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
+        run_p = lambda: rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
+        err = check_close(torch, run_k(), run_p(), f"batch-64 chain T={t} C={c}")
+        ms_k = cuda_time(torch, run_k, 5)
+        ms_p = cuda_time(torch, run_p, 3)
+        other = other_route(rc, c)
+        ms_o = None
+        bf16_ms = None
+        if other is not None:
+            run_o = lambda: rc._run(x, ws, ps, RES_SCALE, 1.0, route=other)
+            check_close(torch, run_o(), run_p(), f"batch-64 chain T={t} C={c} {other[0]}")
+            ms_o = cuda_time(torch, run_o, 5)
+            # both routes in bf16 too, where bf16 serving takes the same table
+            xb, wb, _ = chain_inputs(torch, BATCH, t, c, m, 100 + i, torch.bfloat16)
+            bf16_ms = {kind: cuda_time(torch, lambda: rc._run(xb, wb, ps, RES_SCALE, 1.0,
+                                                               route=route), 5)
+                       for kind, route in ((rc.product_route(c)[0], None), (other[0], other))}
+        mm_f32 = products_matmul_ms(x, ws, m, False)
+        mm_tf32 = products_matmul_ms(x, ws, m, True)
+        flops, nbytes = chain_cost(BATCH, t, c, m, 4)
+        fma_bound, bound, bound_by = bounds(flops, nbytes)
+        if ms_k < bound * 1e3:
+            raise AssertionError(f"chain T={t} C={c}: kernel {ms_k} ms is under its "
+                                 f"bound {bound * 1e3} ms: the count is wrong")
+        plan = rc.chain_plan(c, m, 5)
+        slab_rows = plan[0][0] * 8 + min(plan[0][1], t)
+        regs, ctas, smem = rc.kernel_info(c, slab_rows)
+        kind, tiling = rc.product_route(c)
+        # the other plan of the cost model (one launch for the chain or one
+        # per block), timed on the same route: what refits _FLOP_PER_BYTE
+        threshold = rc.plan_threshold(c, m, 5)
+        plan_ms = None
+        if threshold is not None:
+            whole = [(m, rc._launch_tile(c, m, 5))]
+            per_block = [(1, rc._launch_tile(c, 1, 5))] * m
+            alt = per_block if plan == whole else whole
+            ms_alt = cuda_time(torch, lambda: rc._run(x, ws, ps, RES_SCALE, 1.0, plan=alt), 5)
+            plan_ms = {"chain": ms_k if plan == whole else ms_alt,
+                       "per_block": ms_k if plan != whole else ms_alt,
+                       "threshold": threshold}
+        row = {"path": path, "T": t, "C": c, "M": m, "per_call": count or 1,
+               "launches": len(plan), "plan": plan, "route": kind,
+               "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e6,
+               "fma_bound_us": fma_bound * 1e6, "bound_by": bound_by,
+               "bound_share": bound * 1e3 / ms_k,
+               "max_abs_err": err, "tiling": list(tiling[:2]),
+               "rows_per_pass": rc.rows_per_pass(c), "slab_rows": slab_rows,
+               "ring_stages": rc.ring_stages(c, slab_rows), "smem_per_cta": smem,
+               "registers": regs, "ctas_per_sm": ctas,
+               "other_route": None if other is None else [other[0], list(other[1][:2])],
+               "other_route_ms": ms_o, "bf16_ms_by_route": bf16_ms, "plans_ms": plan_ms,
+               "products_matmul_ms": {"f32": mm_f32, "tf32": mm_tf32}}
+        rows.append(row)
+        if not count:
+            loc_tot["ms"] += ms_k
+            loc_tot["plain_ms"] += ms_p
+            loc_tot["flops"] += flops
+            loc_tot["bytes"] += nbytes
+        tot["ms"] += count * ms_k
+        tot["plain_ms"] += count * ms_p
+        tot["flops"] += count * flops
+        tot["bytes"] += count * nbytes
+        tot["matmul_f32_ms"] += count * mm_f32
+        tot["matmul_tf32_ms"] += count * mm_tf32
+        tot["other_ms"] += count * (ms_k if ms_o is None else ms_o)
+        tot["err"] = max(tot["err"], err)
+        other_txt = ("no other route fits" if other is None else
+                     f"{other[0]} {other[1][0]}x{other[1][1]} {ms_o:.3f} ms; bf16 "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in bf16_ms.items()) + " ms")
+        print(f"chain ({path}) T={t} C={c} M={m} x{count or 1}: {kind} "
+              f"{tiling[0]}x{tiling[1]}, kernel {ms_k:.3f} ms ({other_txt}), plain "
+              f"{ms_p:.3f} ms, bound {bound * 1e6:.1f} us ({bound_by}, "
+              f"{bound * 1e3 / ms_k:.3f} of it reached; f32 FMA bound "
+              f"{fma_bound * 1e6:.1f} us), {len(plan)} launch(es) {plan}; "
+              f"rows per pass {row['rows_per_pass']} of {slab_rows} slab rows, ring "
+              f"stages {row['ring_stages']}, {smem} B smem, {regs} registers, {ctas} "
+              f"CTA/SM; products_matmul_ms {mm_f32:.3f} f32, {mm_tf32:.3f} TF32 [{card}]",
+              flush=True)
+    report["chains_f32_batch64"] = rows
+    # _FLOP_PER_BYTE picks the faster plan at a shape when it lies on the
+    # faster plan's side of that shape's break-even; a shape whose two plans
+    # are within PLAN_NOISE of each other constrains nothing
+    lo, hi = 0.0, float("inf")
+    for row in rows:
+        pm = row["plans_ms"]
+        if pm is not None and abs(pm["chain"] / pm["per_block"] - 1) > PLAN_NOISE:
+            if pm["chain"] < pm["per_block"]:
+                lo = max(lo, pm["threshold"])
+            else:
+                hi = min(hi, pm["threshold"])
+    report["flop_per_byte_fit"] = [lo, hi]
+    print("plans (chain / per block ms, break-even FLOP per byte): " + "; ".join(
+        f"C={r['C']} M={r['M']} {r['plans_ms']['chain']:.3f} / {r['plans_ms']['per_block']:.3f}, "
+        f"{r['plans_ms']['threshold']:.1f}" for r in rows if r["plans_ms"])
+          + f"; values in [{lo:.1f}, {hi:.1f}) pick the plan faster by more than "
+          f"{PLAN_NOISE:.0%} at every shape (_FLOP_PER_BYTE {rc._FLOP_PER_BYTE}) [{card}]")
+    print("library_ms: none (no single PyTorch call computes a resblock chain); "
+          f"products_matmul_ms per embed+detect, informational: f32 "
+          f"{tot['matmul_f32_ms']:.3f}, TF32 allowed {tot['matmul_tf32_ms']:.3f}")
+
+    loc_bound = bounds(loc_tot["flops"], loc_tot["bytes"])
+    report["locate_chains_batch64"] = {"ms": loc_tot["ms"], "plain_ms": loc_tot["plain_ms"],
+                                       "bound_ms": loc_bound[1] * 1e3,
+                                       "bound_by": loc_bound[2]}
+    print(f"chain kernel per batch-64 locate: {loc_tot['ms']:.3f} ms, plain "
+          f"{loc_tot['plain_ms']:.3f} ms, bound {loc_bound[1] * 1e3:.3f} ms "
+          f"({loc_bound[2]}) [{card}]")
+    fma_bound, bound, bound_by = bounds(tot["flops"], tot["bytes"])
+    report["chain_ms_per_embed_detect"] = {"routed": tot["ms"], "other_routes": tot["other_ms"]}
+    print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms (each width on its other "
+          f"route where one fits: {tot['other_ms']:.3f} ms); bound {bound * 1e3:.3f} ms "
+          f"({TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{bound / tot['ms'] * 1e3:.3f} of it reached; f32 FMA bound "
+          f"{fma_bound * 1e3:.3f} ms [{card}]")
+    return tot, bound, bound_by, fma_bound
 
 
 # chains off the shipped configs, through the seanet gate (T, C, M, k):
@@ -3209,9 +3522,11 @@ def ab_times(tree: Path) -> int:
     checkout, or another commit's tree unpacked under ``build/``), for an
     A/B of two trees on one card (run parent, change, change, parent in
     one call): r5 embed+detect and locate at batch 64 x 1 s f32 (CUDA
-    events, 10 calls after warm-up), the sweep at the CLI's defaults (wall
-    s of its second run) and the TrainConfig() step at batch 32 with remat
-    (CUDA events, median of 5 after 3 warm-up). Prints one JSON line."""
+    events, 10 calls after warm-up), the chain kernel's device ms per
+    embed+detect (torch.profiler over 3 calls), the sweep at the CLI's
+    defaults (wall s of its second run) and the TrainConfig() step at
+    batch 32 with remat (CUDA events, median of 5 after 3 warm-up). Prints
+    one JSON line."""
     import dataclasses
     import statistics
 
@@ -3239,6 +3554,9 @@ def ab_times(tree: Path) -> int:
     out = {"tree": str(tree), "package": str(Path(sys.modules["waveverify_torch"].__file__)),
            "embed_detect_ms": cuda_time(torch, lambda: embed_detect(wv.models, audio, bits), 10),
            "locate_ms": cuda_time(torch, lambda: locate_probs(wv.models, audio), 10)}
+    # the chain kernel's device ms per embed+detect (every route's kernels)
+    _, top = device_breakdown(torch, lambda: embed_detect(wv.models, audio, bits))
+    out["chain_kernel_ms"] = sum(ms for k, ms in top if "resblock_chain" in k)
     clips = sweep_inputs()
     for _ in range(2):
         t0 = time.perf_counter()
@@ -3290,84 +3608,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
     report["card"] = card
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = rc.build()
-    report["build_s"] = time.perf_counter() - t0
-    print(f"build: {lib.name} in {report['build_s']:.1f} s")
-    ptxas = (lib.parent / f"{lib.stem}.log").read_text()
-    kernels_built = []
-    for entry, stack, stores, loads, regs in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes "
-            r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
-        io = "bf16" if "bfloat16" in entry else "f32"
-        nt, mt, minb, k = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()
-        kernels_built.append({"io": io, "tiling": [int(nt), int(mt)], "k": int(k),
-                              "min_ctas_per_sm": int(minb), "registers": int(regs),
-                              "spill_store_bytes": int(stores),
-                              "spill_load_bytes": int(loads), "stack_bytes": int(stack)})
-    report["ptxas"] = kernels_built
-    print("ptxas (NT x MT, min CTAs/SM, k: registers f32 / bf16): " + ", ".join(
-        f"{k['tiling'][0]}x{k['tiling'][1]},{k['min_ctas_per_sm']},k={k['k']}: "
-        + " / ".join(str(j["registers"]) for j in kernels_built
-                     if (j["tiling"], j["k"]) == (k["tiling"], k["k"]))
-        for k in kernels_built if k["io"] == "f32"))
-    # every function of the log, the kernels' device functions included
-    spilled = [(name[-60:], int(st), int(ld)) for name, st, ld in re.findall(
-        r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) bytes spill "
-        r"stores, (\d+) bytes spill loads", ptxas) if int(st) or int(ld)]
-    print(f"ptxas: {len(kernels_built)} kernels, spills (function, bytes stored, "
-          f"loaded): {spilled or 'none'}")
-    if len(kernels_built) != 2 * len(rc._TILINGS) * len(rc.KERNEL_SIZES):
-        raise AssertionError("ptxas log does not list every instantiation")
-    if spilled:
-        raise AssertionError("ptxas spilled registers in some instantiation")
-
-    # 3. kernel against its plain version
+    # 2. build; 3. the kernel against its plain version
+    check_build(rc, report)
     strict_f32()
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    errs_by_width = {}
-    shapes = [(2, t, c, m) for t, c, m in CHAINS]
-    shapes += [(2, 1000, 64, 1), (2, 777, 128, 2), (2, 131, 96, 3),
-               (2, 100, 768, 3)]  # ragged
-    # few n-tiles and idle warps; all of tile 0's halo is padding; batch 1
-    shapes += [(2, 300, 32, 1), (2, 300, 48, 2), (2, 20, 96, 3), (2, 20, 768, 3),
-               (1, 1000, 128, 2)]
-    # the locator's chains; a long-audio window's widest-T chains at batch 1
-    shapes += [(2, t, c, m) for t, c, m in LOC_ENC]
-    shapes += [(1, WINDOW, 32, 1), (1, WINDOW, 64, 2)]
-    for i, (b, t, c, m) in enumerate(shapes):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, ws, ps = chain_inputs(torch, b, t, c, m, i, dtype)
-            y = rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
-            ref = rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
-            torch.cuda.synchronize()
-            name = str(dtype).split(".")[1]
-            err = check_close(torch, y, ref, f"chain B={b} T={t} C={c} M={m} {name}")
-            errs[name] = max(errs[name], err)
-            if dtype == torch.float32:
-                errs_by_width[c] = max(errs_by_width.get(c, 0.0), err)
-    x, ws, ps = chain_inputs(torch, 2, 64, 16, 2, 99, torch.float32)
-    leaves = [x] + ws
-    for v in leaves:
-        v.requires_grad_(True)
-    slots = [tuple(w[j] for w in ws) for j in range(2)]
-    y = rc.fused_resblock_chain(x, rc.stack_chain_weights(slots, x.dtype),
-                                prescales=ps, res_scale=RES_SCALE)
-    g_k = torch.autograd.grad(y.square().sum(), leaves)
-    y_ref = rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
-    g_r = torch.autograd.grad(y_ref.square().sum(), leaves)
-    for a, b in zip(g_k, g_r):
-        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
-    torch.cuda.synchronize()
-    report["kernel_check_max_abs_err"] = errs
-    report["kernel_check_f32_max_abs_err_by_width"] = errs_by_width
-    print(f"kernel vs plain: {len(shapes)} shapes x f32/bf16 ok, max |err| "
-          f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; gradients ok")
-    print(f"kernel vs plain, f32 max |err| by width (limit {F32_DRIFT:.1e}, half of "
-          "atol): " + ", ".join(f"C={c} {e:.2e}" for c, e in sorted(errs_by_width.items())))
-    check_routes(torch, rc, report)
+    check_kernel(torch, rc, report)
     if "--kernel-only" in sys.argv[1:]:
+        return 0
+    if "--kernel-times" in sys.argv[1:]:
+        time_chains(torch, rc, report, card_line())
         return 0
 
     # 4. the paths; 4a: embed+detect
@@ -3508,91 +3756,7 @@ def main() -> int:
               f"wall, of which host STOI/PESQ and codec probes {host:.3f} s "
               f"({host / wall:.3f}) [{card}]")
 
-    def bounds(flops, nbytes):
-        """(FMA bound, bound, bound_by) in seconds: the f32 FMA rate the first
-        kernel was held to, and the split-TF32 tensor-core rate it runs at now."""
-        t_bytes = nbytes / PEAK_BYTES
-        t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS
-        return (max(flops / PEAK_F32_FLOPS, t_bytes), max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
-
-    def products_matmul_ms(x, ws, m, allow_tf32):
-        """The chain's 2 m C x C products alone, each as one torch.matmul
-        over x: what the library's GEMM takes for the kernel's main work."""
-        mats = [ws[j][i].t().contiguous() for i in range(m) for j in (0, 3)]
-        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-        ms = cuda_time(torch, lambda: [torch.matmul(w, x) for w in mats], 3)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        return ms
-
-    rows = []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0,
-           "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0}
-    unique = list(dict.fromkeys(CHAINS))
-    loc_tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
-    # embed+detect's shapes, then the locator's (not in the embed+detect sums)
-    for i, (t, c, m) in enumerate(unique + LOC_ENC):
-        count = CHAINS.count((t, c, m))
-        path = "embed_detect" if count else "locate"
-        x, ws, ps = chain_inputs(torch, BATCH, t, c, m, 100 + i, torch.float32)
-        run_k = lambda: rc.resblock_chain(x, *ws, prescales=ps, res_scale=RES_SCALE)
-        run_p = lambda: rc.resblock_chain_ref(x, *ws, prescales=ps, res_scale=RES_SCALE)
-        err = check_close(torch, run_k(), run_p(), f"batch-64 chain T={t} C={c}")
-        ms_k = cuda_time(torch, run_k, 5)
-        ms_p = cuda_time(torch, run_p, 3)
-        mm_f32 = products_matmul_ms(x, ws, m, False)
-        mm_tf32 = products_matmul_ms(x, ws, m, True)
-        flops, nbytes = chain_cost(BATCH, t, c, m, 4)
-        fma_bound, bound, bound_by = bounds(flops, nbytes)
-        if ms_k < bound * 1e3:
-            raise AssertionError(f"chain T={t} C={c}: kernel {ms_k} ms is under its "
-                                 f"bound {bound * 1e3} ms: the count is wrong")
-        plan = rc.chain_plan(c, m, 5)
-        slab_rows = plan[0][0] * 8 + min(plan[0][1], t)
-        regs, ctas = rc.kernel_info(c, slab_rows)
-        nt, mt, _ = rc.product_tiling(c)
-        row = {"path": path, "T": t, "C": c, "M": m, "per_call": count or 1,
-               "launches": len(plan), "plan": plan,
-               "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e6,
-               "fma_bound_us": fma_bound * 1e6, "bound_by": bound_by,
-               "max_abs_err": err, "tiling": [nt, mt], "rows_per_pass": rc.chunk_rows(c),
-               "slab_rows": slab_rows, "registers": regs, "ctas_per_sm": ctas,
-               "products_matmul_ms": {"f32": mm_f32, "tf32": mm_tf32}}
-        rows.append(row)
-        if not count:
-            loc_tot["ms"] += ms_k
-            loc_tot["plain_ms"] += ms_p
-            loc_tot["flops"] += flops
-            loc_tot["bytes"] += nbytes
-        tot["ms"] += count * ms_k
-        tot["plain_ms"] += count * ms_p
-        tot["flops"] += count * flops
-        tot["bytes"] += count * nbytes
-        tot["matmul_f32_ms"] += count * mm_f32
-        tot["matmul_tf32_ms"] += count * mm_tf32
-        tot["err"] = max(tot["err"], err)
-        print(f"chain ({path}) T={t} C={c} M={m} x{count or 1}: kernel {ms_k:.3f} ms, plain "
-              f"{ms_p:.3f} ms, bound {bound * 1e6:.1f} us ({bound_by}; f32 FMA bound "
-              f"{fma_bound * 1e6:.1f} us), {len(plan)} launch(es) {plan}; NT x MT "
-              f"{nt} x {mt}, R {row['rows_per_pass']} of {slab_rows} slab rows, "
-              f"{regs} registers, {ctas} CTA/SM; products alone by torch.matmul "
-              f"{mm_f32:.3f} ms f32, {mm_tf32:.3f} ms TF32 [{card}]", flush=True)
-    report["chains_f32_batch64"] = rows
-    print("library_ms: none (no single PyTorch call computes a resblock chain); "
-          f"products_matmul_ms per embed+detect, informational: f32 "
-          f"{tot['matmul_f32_ms']:.3f}, TF32 allowed {tot['matmul_tf32_ms']:.3f}")
-
-    loc_bound = bounds(loc_tot["flops"], loc_tot["bytes"])
-    report["locate_chains_batch64"] = {"ms": loc_tot["ms"], "plain_ms": loc_tot["plain_ms"],
-                                       "bound_ms": loc_bound[1] * 1e3,
-                                       "bound_by": loc_bound[2]}
-    print(f"chain kernel per batch-64 locate: {loc_tot['ms']:.3f} ms, plain "
-          f"{loc_tot['plain_ms']:.3f} ms, bound {loc_bound[1] * 1e3:.3f} ms "
-          f"({loc_bound[2]}) [{card}]")
-    fma_bound, bound, bound_by = bounds(tot["flops"], tot["bytes"])
-    print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms; bound "
-          f"{bound * 1e3:.3f} ms ({TF32_PASSES} TF32 passes at "
-          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); f32 FMA bound {fma_bound * 1e3:.3f} ms")
+    tot, bound, bound_by, fma_bound = time_chains(torch, rc, report, card)
     # 6. training: the chain's gradients under checkpoint, one step on the
     # card against the CPU, the CLI's run (its checkpoint kept for phase 8),
     # times

@@ -286,10 +286,26 @@ def test_product_tiling_fits_the_cta(c):
 def test_tilings_match_the_kernel_source():
     src = (Path(rc.__file__).resolve().parent.parent / "csrc"
            / "resblock_chain.cu").read_text()
-    line = re.search(r"#define WV_TILINGS\(X\)(.*)", src).group(1)
-    compiled = tuple(tuple(int(n) for n in t)
+
+    def table(name):
+        line = re.search(rf"#define {name}\(X\)(.*)", src).group(1)
+        return tuple(tuple(int(n) for n in t)
                      for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", line))
-    assert compiled == rc._TILINGS
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+                   .replace("2 * kMaxStages * 8", str(2 * rc._MAX_STAGES * 8)))
+
+    assert table("WV_TILINGS") == rc._TILINGS
+    # the route table names compiled wgmma tilings only; the wrappers the
+    # kernel has (wgmma_tf32_n<NB>) cover every column block width
+    assert table("WV_WG_TILINGS") == rc._WG_TILINGS
+    assert set(rc._WGMMA_WIDTHS.values()) <= set(rc._WG_TILINGS)
+    for nb, _, _ in rc._WG_TILINGS:
+        assert f"void wgmma_tf32_n{nb}(" in src
+    assert (const("kMaxStages"), const("kBarBytes"), const("kWgRows"), const("kSlabPad"),
+            const("kMaxSmem")) == (rc._MAX_STAGES, rc._BAR_BYTES, rc._WG_ROWS,
+                                   rc._SLAB_PAD, rc._SMEM_FULL)
 
 
 @pytest.mark.parametrize("c,ok", [(20, False), (24, False), (40, False), (32, True)])
@@ -392,3 +408,137 @@ def test_kernel_matches_plain_version_on_card():
         expected = 0 if c > rc.MAX_CHANNELS else rc.launches_per_chain(c, m, k)
         assert launches == expected, (t, c, m, k, launches)
         torch.testing.assert_close(y, ref, atol=2e-5, rtol=1e-5)
+
+
+# -- the wgmma route: the weight image, its TF32 split, its tables, its plans
+
+def _wgmma_image_index(n, k):
+    """Float offset of B[k][n] inside one stage's part (the kernel's
+    descriptor: K-major, no swizzle, leading byte offset 128, stride 256)."""
+    return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+
+
+@pytest.mark.parametrize("c,nb,m", [(96, 96, 1), (128, 64, 2), (192, 96, 2), (384, 96, 1)])
+def test_wgmma_image_round_trip_and_index_rule(c, nb, m):
+    rng = np.random.RandomState(c + nb)
+    pw = torch.from_numpy(rng.randn(m, c, c).astype(np.float32))
+    packed = rc.pack_wgmma_weights(pw, nb)
+    assert packed.shape == (m, c // 8, c // nb, 2, nb // 8, 2, 8, 4)
+    assert packed.is_contiguous()
+    assert torch.equal(rc.unpack_wgmma_weights(packed), pw)
+    hi, lo = packed[:, :, :, 0], packed[:, :, :, 1]
+    flat = packed.reshape(-1)
+    stage = rc.stage_bytes(c) // 4  # floats of one ring stage: a k-chunk
+    for _ in range(200):
+        i, ks, cb = rng.randint(m), rng.randint(c // 8), rng.randint(c // nb)
+        n, k = rng.randint(nb), rng.randint(8)
+        w = pw[i, 8 * ks + k, nb * cb + n]
+        # ring stage (block i, k-chunk ks); in it, column block cb's hi, lo
+        base = (i * (c // 8) + ks) * stage + cb * 2 * nb * 8
+        off = _wgmma_image_index(n, k)
+        h, l_ = flat[base + off], flat[base + nb * 8 + off]
+        assert h == hi[i, ks, cb].reshape(-1)[off]
+        assert l_ == lo[i, ks, cb].reshape(-1)[off]
+        assert h + l_ == w
+
+
+def test_wgmma_image_splits_into_exact_tf32_hi_and_f32_rest():
+    rng = np.random.RandomState(3)
+    pw = torch.from_numpy(rng.randn(2, 128, 128).astype(np.float32))
+    packed = rc.pack_wgmma_weights(pw, 64)
+    hi, lo = packed[:, :, :, 0], packed[:, :, :, 1]
+    assert int((hi.contiguous().view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(rc.unpack_wgmma_weights(packed), pw)  # hi + lo == w in f32
+    # hi is the nearest TF32 value, as the kernel rounds A
+    assert torch.equal(rc.unpack_wgmma_weights(packed[:, :, :, :1]), rc.split_tf32(pw)[0])
+    # bf16 values are exact in TF32: lo == 0, and the bf16 image is hi alone
+    pb = pw.bfloat16().float()
+    packed_b = rc.pack_wgmma_weights(pb, 64)
+    assert int(packed_b[:, :, :, 1].abs().max()) == 0
+    assert torch.equal(rc.pack_wgmma_weights(pb, 64, split=False),
+                       packed_b[:, :, :, :1])
+    route = ("wgmma", (64, 2, 2))
+    assert torch.equal(rc._packed(pb, bf16=True, route=route), packed_b[:, :, :, :1])
+
+
+def test_wgmma_routes_fit_their_tilings():
+    assert rc._WGMMA_WIDTHS, "the route table sends no width to wgmma"
+    for c, (nb, units, ctas) in rc._WGMMA_WIDTHS.items():
+        assert (nb, units, ctas) in rc._WG_TILINGS
+        assert c % 16 == 0 and c % nb == 0 and nb % 8 == 0 and nb <= 256
+        # every column block of a row tile in one sweep (the in-place rule)
+        assert (2 * units) % (c // nb) == 0
+        assert ctas == (2 if c <= 128 else 1)
+        assert rc.product_route(c) == ("wgmma", (nb, units, ctas))
+        assert rc.rows_per_pass(c) == 2 * units // (c // nb) * 64
+        # sums per thread: a unit is 64 x nb sums over a warpgroup's 128
+        # threads, carried in the tensor core (no f32 part beside them)
+        assert units * nb // 2 <= (96 if ctas == 1 else 64)
+    for c in (16, 32, 48, 64, 96, 128, 256, 384, 512, 768):
+        assert rc.product_route(c) == ("mma", rc.product_tiling(c))
+
+
+@pytest.mark.parametrize("c,m", PLAN_SHAPES + [(48, 10), (256, 9)])
+def test_chain_plan_fits_slabs_and_ring(c, m):
+    """Slabs plus the ring fit one CTA's shared memory at the stages the
+    launch takes (f32 and bf16), with room for two stages; two CTAs share
+    an SM where the tiling aims at two and the tile covers four halos."""
+    route = rc.product_route(c)
+    for k in rc.KERNEL_SIZES:
+        for blocks, t_tile in rc.chain_plan(c, m, k):
+            halo = blocks * 2 * (k - 1)
+            rows = halo + t_tile
+            assert t_tile > 0 and t_tile % 4 == 0 and rows % 16 == 0
+            for bf16 in (False, True):
+                stages = rc.ring_stages(c, rows, bf16)
+                smem = rc.smem_bytes(c, rows, stages, split=not bf16)
+                assert smem <= 232448
+                if route[0] == "wgmma":
+                    assert 2 <= stages <= rc._MAX_STAGES
+                    assert smem == (rc.slab_bytes(c, rows) + rc._BAR_BYTES
+                                    + stages * rc.stage_bytes(c, not bf16))
+                    if route[1][2] == 2 and t_tile >= 4 * halo:
+                        assert 2 * (smem + 1024) <= 228 * 1024
+                else:
+                    assert stages == 0 and smem == rc.slab_bytes(c, rows)
+
+
+@pytest.mark.parametrize("c,m,chunk", [(192, 3, 32), (384, 2, 8)])
+def test_chunked_flush_model_matches_jax_xla_chain(c, m, chunk):
+    """The flush's arithmetic (wgmma at C = 192: every four k-chunks of 8
+    input channels; mma.sync: every k-step): per chunk three TF32 passes
+    from zero, added to the running sums in f32 in k order; the chain built
+    on it against the reference package."""
+    from functools import partial
+
+    x, ws, ps = _inputs(1, 40, c, m, seed=c + 2)
+    ws[0], ws[3] = [w * (0.2 * c**0.5) ** -1 for w in (ws[0], ws[3])]
+    y_j = np.asarray(pk._resblock_chain_xla(
+        jnp.asarray(x), *map(jnp.asarray, ws), k=5, d1=1, d2=1, prescales=ps,
+        res_scale=RES_SCALE, alpha=1.0))
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    product = partial(rc.pointwise_tf32x3, chunk=chunk)
+    y = rc.resblock_chain_ref(xt, *[torch.from_numpy(w) for w in ws], prescales=ps,
+                              res_scale=RES_SCALE, product=product)
+    np.testing.assert_allclose(y.numpy().transpose(0, 2, 1), y_j, **F32_TOL)
+    # the chunked sums are the three passes' in another order
+    u = torch.from_numpy(x[0].T.copy())[None]
+    pw = torch.from_numpy(ws[0][0])
+    torch.testing.assert_close(product(pw, u), rc.pointwise_tf32x3(pw, u), **F32_TOL)
+
+
+@pytest.mark.parametrize("c,m", PLAN_SHAPES + [(48, 10), (256, 9)])
+def test_chain_plan_follows_its_break_even(c, m):
+    """chain_plan runs the chain in its fewest launches exactly when
+    _FLOP_PER_BYTE reaches the cost model's break-even (the number the
+    card check refits the constant against)."""
+    threshold = rc.plan_threshold(c, m, 5)
+    groups = rc._groups(m)
+    plan = rc.chain_plan(c, m, 5)
+    assert sum(groups) == m and max(groups) <= rc._MAX_BLOCKS
+    if threshold is None:
+        assert [b for b, _ in plan] == groups == [1] * m
+    elif rc._FLOP_PER_BYTE >= threshold:
+        assert [b for b, _ in plan] == groups
+    else:
+        assert [b for b, _ in plan] == [1] * m

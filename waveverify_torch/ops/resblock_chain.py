@@ -11,15 +11,25 @@ bf16. Weights follow the JAX package's orientation: ``pw [M, Cin, Cout]``
 (``u @ pw``), ``dw [M, k, C]``, ``b [M, C]``, stored as f32; under bf16
 serving their values are rounded to bf16 first, as the TPU wrapper does.
 
-The 1x1 products run on the tensor cores with the warp-level
-``mma.sync.m16n8k8`` TF32 instruction (M = time rows, N = output channels,
-K = input channels). With ``g = lane >> 2`` and ``t = lane & 3`` a lane
-holds ``A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]`` of a 16 x 8 tile of
-the activation, ``B[t][g], B[t+4][g]`` of an 8 x 8 tile of ``pw``, and
-``D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]`` of the 16 x 8 sums.
-:func:`pack_chain_weights` lays ``pw`` out in that order, so that a lane
-loads the B values of two neighbouring tiles as one 16-byte word; the
-wrapper keeps the packed copy beside the tensor it was made from.
+The 1x1 products run on the tensor cores by one of two routes, chosen per
+width from a table (``_WGMMA_WIDTHS``; the source's header has both):
+
+- ``wgmma``: Hopper's warpgroup ``wgmma.mma_async.m64nNk8`` in TF32, with
+  A (time rows x input channels) from registers and B (the weights) from
+  shared memory, K-major. :func:`pack_wgmma_weights` lays ``pw`` out as
+  the exact shared-memory image the kernel reads (per k-chunk of 8 input
+  channels and column block of NB output channels, TF32 hi then lo), and
+  one bulk copy moves a whole k-chunk (a ring stage) into a ring.
+- ``mma``: the warp-level ``mma.sync.m16n8k8`` TF32 instruction (M = time
+  rows, N = output channels, K = input channels). With ``g = lane >> 2``
+  and ``t = lane & 3`` a lane holds ``A[g][t], A[g+8][t], A[g][t+4],
+  A[g+8][t+4]`` of a 16 x 8 tile of the activation, ``B[t][g], B[t+4][g]``
+  of an 8 x 8 tile of ``pw``, and ``D[g][2t], D[g][2t+1], D[g+8][2t],
+  D[g+8][2t+1]`` of the 16 x 8 sums. :func:`pack_chain_weights` lays
+  ``pw`` out in that order, so that a lane loads the B values of two
+  neighbouring tiles as one 16-byte word.
+
+The wrapper keeps the packed copy beside the tensor it was made from.
 
 Split TF32: TF32 keeps 10 mantissa bits, so every operand is split into
 ``hi = tf32(v)`` (to nearest) and ``lo = tf32(v - hi)`` (toward zero, by
@@ -29,8 +39,10 @@ three products ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` are summed in f32
 activation the weights must hold bf16 values (:func:`stack_chain_weights`
 sees to it; the wrapper checks): they are exact in TF32, and the kernel
 skips ``a_hi b_lo``. The tensor core adds into its sums toward zero, so for
-C > 128 the kernel starts each k-step's products from zero and carries the
-sums in f32 adds outside it, which keeps its error at the f32 product's.
+C > 128 the mma.sync route starts each k-step's products from zero and
+carries the sums in f32 adds outside it, which keeps its error at the f32
+product's; the wgmma route (C = 192) does so every four k-chunks of 8
+channels (6.3e-07 at C = 192 on an H100).
 
 What the kernel takes, and what the wrapper does around it: widths C up to
 ``MAX_CHANNELS`` (wider chains run block by block in plain PyTorch, as the
@@ -39,13 +51,6 @@ depthwise widths k in ``KERNEL_SIZES``; any number of blocks, in launches
 of at most ``_MAX_BLOCKS``; any C, zero-padded to a multiple of 16. Zero
 weights, zero bias and ELU(0) = 0 keep the padded channels at 0 through
 both branches and the identity skip, so the padding changes no output.
-
-What bounds the kernel: each chunk of R rows re-reads the C x C matrix from
-L2, R / 2 FLOP per L2 byte; R is capped by the registers that hold the
-sums and, at C = 768, by the two slabs in shared memory. The kernel takes
-widths that are multiples of 16 (n-tiles are packed in pairs). ``wgmma``
-was not taken: in TF32 it reads its shared-memory operands K-major only,
-and the slab is row-contiguous per channel for the depthwise passes.
 
 Dispatch is by the tensor's device: a CPU tensor goes to
 :func:`resblock_chain_ref`; a CUDA tensor goes to the kernel, or the call
@@ -58,7 +63,7 @@ from __future__ import annotations
 import hashlib
 import os
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,13 +78,32 @@ _SMEM_HALF = 115712
 # FLOP of the products the kernel does in the time the card moves one byte
 # of device memory, for chain_plan's cost model.
 _FLOP_PER_BYTE = 40.0
-# Product tilings the kernel is compiled for (WV_TILINGS in the source):
-# (NT, MT, CTAs per SM). A warp holds MT x NT mma tiles of sums, 16 MT rows
-# by 8 NT columns; a tiling for one CTA per SM may use up to 255 registers.
+# Product tilings the kernel is compiled for. mma.sync (WV_TILINGS in the
+# source): (NT, MT, CTAs per SM). A warp holds MT x NT mma tiles of sums,
+# 16 MT rows by 8 NT columns; a tiling for one CTA per SM may use up to 255
+# registers.
 _TILINGS = ((12, 2, 1), (8, 3, 1), (6, 4, 1), (6, 2, 2), (4, 3, 2))
+# wgmma (WV_WG_TILINGS in the source): (NB, UNITS, CTAs per SM). Each of the
+# two warpgroups holds UNITS units of 64 rows by NB columns of sums. 96 x 2
+# serves C = 192; the two-CTA tilings let chip_smoke.py time the wgmma route
+# at C = 64, 96 and 128, where mma.sync measured faster.
+_WG_TILINGS = ((96, 2, 1), (64, 2, 2), (96, 1, 2))
+# The route per width: a width listed here runs wgmma with this tiling, any
+# other the mma.sync tiling of product_tiling. wgmma only where it measured
+# faster on the card (chip_smoke.py phase 5 times both routes at every
+# width a compiled tiling fits): C = 192. At C = 64, 96, 128 and 384 the
+# wgmma tilings above run the width slower (PERF.md).
+_WGMMA_WIDTHS = {192: (96, 2, 1)}
 _WARPS = 8
+_WG_ROWS = 64  # rows of one wgmma tile
 # Floats of padding per channel of the slab (kSlabPad in the source).
 _SLAB_PAD = 4
+# The wgmma route's ring: at most _MAX_STAGES stages (kMaxStages) behind
+# _BAR_BYTES of mbarriers (kBarBytes); the plan keeps room for two f32
+# stages.
+_MAX_STAGES = 8
+_BAR_BYTES = 2 * _MAX_STAGES * 8
+_MIN_STAGES = 2
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "resblock_chain.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -125,11 +149,19 @@ def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def pointwise_tf32x3(pw: torch.Tensor, u: torch.Tensor,
-                     split_b: bool = True) -> torch.Tensor:
+                     split_b: bool = True, chunk: Optional[int] = None) -> torch.Tensor:
     """The kernel's product: :func:`_pointwise` from TF32 operands in three
     passes, ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, summed in f32 in that
     order. ``split_b=False`` takes ``pw`` as exact in TF32 (bf16 values) and
-    drops the middle pass."""
+    drops the middle pass. ``chunk``: the sums carried outside the tensor
+    core, as the one-CTA tilings do (mma.sync every 8 input channels,
+    wgmma every 32): each chunk of ``chunk`` input channels sums its
+    passes from zero, and the running sum adds them in f32 in k order."""
+    if chunk is not None:
+        out = torch.zeros(u.shape[0], pw.shape[1], u.shape[2], dtype=torch.float32)
+        for k0 in range(0, pw.shape[0], chunk):
+            out = out + pointwise_tf32x3(pw[k0:k0 + chunk], u[:, k0:k0 + chunk], split_b)
+        return out
     a_hi, a_lo = split_tf32(u)
     b_hi, b_lo = split_tf32(pw)
     out = _pointwise(b_hi, a_lo)
@@ -162,9 +194,9 @@ def resblock_chain_ref(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
 
 
 def product_tiling(c: int) -> Tuple[int, int, int]:
-    """``(NT, MT, CTAs per SM)`` of the product at width c, from the
-    compiled tilings. ``wn = ceil(c / (8 NT))`` warps cover the columns and
-    ``8 // wn`` row groups share a chunk. Widths up to 128 take a tiling
+    """``(NT, MT, CTAs per SM)`` of the mma.sync product at width c, from
+    the compiled tilings. ``wn = ceil(c / (8 NT))`` warps cover the columns
+    and ``8 // wn`` row groups share a chunk. Widths up to 128 take a tiling
     whose registers leave two CTAs on an SM; wider ones take 96 sums per
     thread and one CTA. Among those the tiling that keeps most of the
     warps' columns and row groups in use wins, then the one with more sums
@@ -183,47 +215,124 @@ def product_tiling(c: int) -> Tuple[int, int, int]:
     return best
 
 
+Route = Tuple[str, Tuple[int, int, int]]
+
+
+def product_route(c: int) -> Route:
+    """The product's route at width c: ``("wgmma", (NB, UNITS, CTAs per
+    SM))`` for a width in ``_WGMMA_WIDTHS``, else ``("mma", (NT, MT, CTAs
+    per SM))`` from :func:`product_tiling`. One route per width, by the
+    table alone."""
+    if c in _WGMMA_WIDTHS:
+        return "wgmma", _WGMMA_WIDTHS[c]
+    return "mma", product_tiling(c)
+
+
 def chunk_rows(c: int) -> int:
-    """Rows R of one product pass at width c: every pass re-reads the C x C
-    matrix from L2, so the product does R / 2 FLOP per L2 byte."""
+    """Rows R of one mma.sync product pass at width c: every pass re-reads
+    the C x C matrix from L2, so the product does R / 2 FLOP per L2 byte."""
     nt, mt, _ = product_tiling(c)
     return _WARPS // -(-c // (8 * nt)) * 16 * mt
 
 
+def rows_per_pass(c: int, route: Optional[Route] = None) -> int:
+    """Rows one product pass (sweep) covers on the route: mma.sync's
+    :func:`chunk_rows`; for wgmma, the 2 UNITS (row tile, column block)
+    units of the two warpgroups cover every column block of 2 UNITS /
+    (c / NB) row tiles of 64. Every pass streams the C x C matrix once."""
+    kind, (a, b, _) = route or product_route(c)
+    if kind == "mma":
+        return chunk_rows(c)
+    return 2 * b // (c // a) * _WG_ROWS
+
+
+def stage_bytes(c: int, split: bool = True) -> int:
+    """Bytes of one wgmma ring stage, one bulk copy: a k-chunk of 8 input
+    channels by all c output channels in TF32 hi and, with ``split``
+    (f32), lo."""
+    return (2 if split else 1) * c * 8 * 4
+
+
 def slab_bytes(c: int, rows: int) -> int:
-    """Shared memory of one CTA: two f32 slabs of c channels, each channel
-    padded to whole 16-row groups plus ``_SLAB_PAD`` floats (the kernel's
-    ``slab_stride``)."""
+    """Shared memory of the two f32 slabs of one CTA: c channels, each
+    channel padded to whole 16-row groups plus ``_SLAB_PAD`` floats (the
+    kernel's ``slab_stride``)."""
     return 2 * 4 * c * (-(-rows // 16) * 16 + _SLAB_PAD)
 
 
-def _slab_rows(c: int, budget: int) -> int:
-    """Rows of the slabs (halo + tile) that fit ``budget``: a whole number
-    of 16-row groups, and one product pass where a second pass would be at
-    most a quarter full (every pass re-reads the C x C matrix, whatever
-    rows it has left)."""
-    rows = (budget // (2 * 4 * c) - _SLAB_PAD) // 16 * 16
-    r = chunk_rows(c)
+def smem_bytes(c: int, rows: int, stages: int = _MIN_STAGES, route: Optional[Route] = None,
+               split: bool = True) -> int:
+    """Shared memory of one CTA (the kernel's ``chain_smem``): the slabs
+    and, on the wgmma route, the ring's barriers and ``stages`` stages."""
+    if (route or product_route(c))[0] == "mma":
+        return slab_bytes(c, rows)
+    return slab_bytes(c, rows) + _BAR_BYTES + stages * stage_bytes(c, split)
+
+
+def _slab_rows(c: int, budget: int, route: Optional[Route] = None) -> int:
+    """Rows of the slabs (halo + tile) that fit ``budget`` beside the
+    route's minimum ring: a whole number of 16-row groups, and one product
+    pass where a second pass would be at most a quarter full (every pass
+    re-reads the C x C matrix, whatever rows it has left)."""
+    ring = smem_bytes(c, 0, route=route) - slab_bytes(c, 0)
+    rows = ((budget - ring) // (2 * 4 * c) - _SLAB_PAD) // 16 * 16
+    r = rows_per_pass(c, route)
     return r if r < rows <= r + r // 4 else rows
 
 
-def _tile(c: int, m: int, k: int, budget: int) -> int:
-    """Rows of T one CTA owns when its two f32 slabs fit ``budget``."""
-    return _slab_rows(c, budget) - m * 2 * (k - 1)
+def _tile(c: int, m: int, k: int, budget: int, route: Optional[Route] = None) -> int:
+    """Rows of T one CTA owns when its slabs and ring fit ``budget``."""
+    return _slab_rows(c, budget, route) - m * 2 * (k - 1)
 
 
-def _launch_tile(c: int, m: int, k: int) -> int:
+def _launch_tile(c: int, m: int, k: int, route: Optional[Route] = None) -> int:
     """Tile for an m-block launch: two CTAs per SM when the product's
     tiling allows two and the tile still covers four halos, else the whole
     shared memory of the SM."""
     halo = m * 2 * (k - 1)
-    tt = _tile(c, m, k, _SMEM_HALF)
-    if product_tiling(c)[2] == 2 and tt >= 4 * halo:
+    tt = _tile(c, m, k, _SMEM_HALF, route)
+    if (route or product_route(c))[1][2] == 2 and tt >= 4 * halo:
         return tt
-    return _tile(c, m, k, _SMEM_FULL)
+    return _tile(c, m, k, _SMEM_FULL, route)
 
 
-def chain_plan(c: int, m: int, k: int) -> List[Tuple[int, int]]:
+def ring_stages(c: int, rows: int, bf16: bool = False, route: Optional[Route] = None) -> int:
+    """Stages of the wgmma ring beside slabs of ``rows`` rows: as many as
+    the CTA's budget leaves (two CTAs per SM where the plan chose that),
+    at most ``_MAX_STAGES``; 0 on the mma.sync route."""
+    kind, (_, _, ctas) = route or product_route(c)
+    if kind == "mma":
+        return 0
+    base = slab_bytes(c, rows) + _BAR_BYTES
+    half = ctas == 2 and base + _MIN_STAGES * stage_bytes(c) <= _SMEM_HALF
+    budget = _SMEM_HALF if half else _SMEM_FULL
+    return min(_MAX_STAGES, (budget - base) // stage_bytes(c, not bf16))
+
+
+def _groups(m: int) -> List[int]:
+    """Blocks per launch of a chain of m blocks in the fewest launches of
+    at most ``_MAX_BLOCKS``, of near-equal length."""
+    n = -(-m // _MAX_BLOCKS)
+    return [m // n + (i < m % n) for i in range(n)]
+
+
+def plan_threshold(c: int, m: int, k: int, route: Optional[Route] = None) -> Optional[float]:
+    """The FLOP per byte at and above which :func:`chain_plan` runs the
+    chain in :func:`_groups` launches rather than one launch per block: the
+    products' extra halo recompute over the device-memory traffic the
+    fewer launches save. None when the two plans are the same launches."""
+    def recompute(mm: int) -> float:
+        tt = _launch_tile(c, mm, k, route)
+        return (tt + mm * 2 * (k - 1)) / tt if tt > 0 else float("inf")
+
+    groups = _groups(m)
+    if len(groups) == m:
+        return None
+    extra = sum(g * 4 * c * c * recompute(g) for g in groups) - m * 4 * c * c * recompute(1)
+    return extra / (8 * c * (m - len(groups)))
+
+
+def chain_plan(c: int, m: int, k: int, route: Optional[Route] = None) -> List[Tuple[int, int]]:
     """Launches for an m-block chain at width c (a multiple of 16):
     ``[(blocks, t_tile), ...]``.
 
@@ -231,22 +340,15 @@ def chain_plan(c: int, m: int, k: int) -> List[Tuple[int, int]]:
     with m and the recompute with it; one launch per block has a halo of
     2(k-1) rows but moves x m times. Per row, the products cost 4 c^2 f32
     FLOP per block and a launch moves 8 c bytes of f32, weighed at the
-    card's f32 FLOP-per-byte balance; the cheaper plan wins. A chain of
-    more than ``_MAX_BLOCKS`` blocks is cut into the fewest launches of
-    near-equal length; the blocks are sequential, so the result is the
-    same."""
-    def recompute(mm: int) -> float:
-        tt = _launch_tile(c, mm, k)
-        return (tt + mm * 2 * (k - 1)) / tt if tt > 0 else float("inf")
-
-    io = _FLOP_PER_BYTE * 8 * c
-    n = -(-m // _MAX_BLOCKS)
-    groups = [m // n + (i < m % n) for i in range(n)]
-    chain = sum(g * 4 * c * c * recompute(g) + io for g in groups)
-    per_block = m * (4 * c * c * recompute(1) + io)
-    if chain <= per_block:
-        return [(g, _launch_tile(c, g, k)) for g in groups]
-    return [(1, _launch_tile(c, 1, k))] * m
+    card's f32 FLOP-per-byte balance (:func:`plan_threshold`); the cheaper
+    plan wins. A chain of more than ``_MAX_BLOCKS`` blocks is cut into the
+    fewest launches of near-equal length; the blocks are sequential, so the
+    result is the same. ``route`` defaults to the width's
+    (:func:`product_route`)."""
+    threshold = plan_threshold(c, m, k, route)
+    if threshold is None or _FLOP_PER_BYTE >= threshold:
+        return [(g, _launch_tile(c, g, k, route)) for g in _groups(m)]
+    return [(1, _launch_tile(c, 1, k, route))] * m
 
 
 # --------------------------------------------------------------------------
@@ -304,11 +406,11 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.wv_resblock_chain.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
             ctypes.POINTER(f), f, f, i, p]
         lib.wv_resblock_chain.restype = i
         lib.wv_resblock_chain_info.argtypes = [
-            i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+            i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.wv_resblock_chain_info.restype = i
         lib.wv_error_string.argtypes = [i]
         lib.wv_error_string.restype = ctypes.c_char_p
@@ -336,42 +438,78 @@ def unpack_chain_weights(packed: torch.Tensor) -> torch.Tensor:
     return v.permute(0, 1, 6, 4, 2, 5, 3).reshape(m, nks * 8, npairs * 16).contiguous()
 
 
-def _packed(pw: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """:func:`pack_chain_weights` of ``pw``, kept on the tensor until it is
-    written in place. ``bf16``: the activation is bf16, so the kernel will
-    take ``pw`` as exact in TF32 and skip the ``a_hi b_lo`` pass; values that
-    are not bf16 values would be cut to 10 mantissa bits there, so they
-    raise here (checked once per version of the tensor)."""
-    key = (pw.data_ptr(), pw._version, bf16)
+def pack_wgmma_weights(pw: torch.Tensor, nb: int, split: bool = True) -> torch.Tensor:
+    """``pw [M, Cin, Cout]`` as the wgmma route's ring stages:
+    ``[M, Cin / 8, Cout / nb, parts, nb / 8, 2, 8, 4]``, one stage per
+    (k-chunk ks, column block cb), each the exact shared-memory image the
+    kernel's descriptor reads (K-major, no swizzle). Entry ``[m, ks, cb, p,
+    n8, kh, n, k]`` is part p of ``pw[m, 8 ks + 4 kh + k, nb cb + 8 n8 + n]``
+    (B[k][n] at float ``(n / 8) 64 + (k / 4) 32 + (n % 8) 4 + k % 4`` of
+    the stage): p = 0 is ``hi = tf32(w)`` (to nearest), p = 1 (``split``,
+    the f32 kernel) is ``lo = w - hi`` with all its f32 bits, which the
+    tensor core cuts to TF32 toward zero on reading, so ``hi + lo == w``."""
+    m, c, c_out = pw.shape
+    if c != c_out or c % 16 or c % nb or nb % 8:
+        raise ValueError(f"pw must be [M, C, C] with C a multiple of 16 and of "
+                         f"nb={nb}, got {tuple(pw.shape)}")
+    w = pw.float().contiguous()
+    hi = split_tf32(w)[0]
+    parts = [hi, w - hi] if split else [hi]
+    v = torch.stack([q.reshape(m, c // 8, 2, 4, c // nb, nb // 8, 8) for q in parts],
+                    dim=-1)  # m ks kh k cb n8 n p
+    return v.permute(0, 1, 4, 7, 5, 2, 6, 3).contiguous()
+
+
+def unpack_wgmma_weights(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_wgmma_weights`: the sum of the parts."""
+    m, nks, ncb, _, n8 = packed.shape[:5]
+    v = packed.sum(dim=3)  # m ks cb n8 kh n k
+    return v.permute(0, 1, 4, 6, 2, 3, 5).reshape(m, nks * 8, ncb * n8 * 8).contiguous()
+
+
+def _packed(pw: torch.Tensor, bf16: bool = False, route: Optional[Route] = None) -> torch.Tensor:
+    """``pw`` in the order its width's route reads it
+    (:func:`pack_chain_weights` or :func:`pack_wgmma_weights`), kept on the
+    tensor until it is written in place. ``bf16``: the activation is bf16,
+    so the kernel will take ``pw`` as exact in TF32 and skip the ``a_hi
+    b_lo`` pass (the wgmma image then holds hi alone); values that are not
+    bf16 values would be cut to 10 mantissa bits there, so they raise here
+    (checked once per version of the tensor)."""
+    route = route or product_route(pw.shape[-1])
+    key = (pw.data_ptr(), pw._version, bf16, route)
     hit = getattr(pw, "_packed_for_kernel", None)
     if hit is None or hit[0] != key:
         w = pw.detach()
         if bf16 and not torch.equal(w, w.bfloat16().float()):
             raise ValueError("with a bfloat16 activation pw must hold bfloat16 "
                              "values (see stack_chain_weights)")
-        hit = (key, pack_chain_weights(w))
+        kind, (a, _, _) = route
+        image = (pack_chain_weights(w) if kind == "mma"
+                 else pack_wgmma_weights(w, a, split=not bf16))
+        hit = (key, image)
         pw._packed_for_kernel = hit
     return hit[1]
 
 
 def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
-            alpha, t_tile: int) -> torch.Tensor:
-    """One launch. ``ws`` holds pw1 and pw2 in fragment order."""
+            alpha, t_tile: int, route: Route) -> torch.Tensor:
+    """One launch. ``ws`` holds pw1 and pw2 in the route's order."""
     import ctypes
 
     lib = _library()
     b, c, t = x.shape
     m, k = ws[1].shape[0], ws[1].shape[1]
-    nt, mt, _ = product_tiling(c)
+    kind, (ta, tb, _) = route
+    bf16 = x.dtype == torch.bfloat16
+    stages = ring_stages(c, m * 2 * (k - 1) + min(t_tile, t), bf16, route)
     out = torch.empty_like(x)
     ps = (ctypes.c_float * m)(*[float(p) for p in prescales])
     # the C side launches on the current device: make it x's
     with torch.cuda.device(x.device):
         err = lib.wv_resblock_chain(
             x.data_ptr(), *[w.data_ptr() for w in ws], out.data_ptr(), b, c, t, m,
-            k, t_tile, nt, mt, ps, float(res_scale), float(alpha),
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            k, t_tile, int(kind == "wgmma"), ta, tb, stages, ps, float(res_scale),
+            float(alpha), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("resblock_chain kernel launch failed: "
                            + lib.wv_error_string(err).decode())
@@ -379,21 +517,26 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
     return out
 
 
-def kernel_info(c: int, rows: int, bf16: bool = False) -> Tuple[int, int]:
-    """``(registers per thread, CTAs resident on one SM)`` of the kernel a
-    launch at width c (k = 5) takes when its slabs hold ``rows`` rows. Needs
-    the card."""
+def kernel_info(c: int, rows: int, bf16: bool = False,
+                route: Optional[Route] = None) -> Tuple[int, int, int]:
+    """``(registers per thread, CTAs resident on one SM, shared memory per
+    CTA)`` of the kernel a launch at width c (k = 5) takes when its slabs
+    hold ``rows`` rows (with :func:`ring_stages` stages on the wgmma
+    route). Needs the card."""
     import ctypes
 
     lib = _library()
-    nt, mt, _ = product_tiling(c)
-    regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.wv_resblock_chain_info(c, rows, nt, mt, int(bf16),
-                                     ctypes.byref(regs), ctypes.byref(ctas))
+    route = route or product_route(c)
+    kind, (ta, tb, _) = route
+    regs, ctas, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.wv_resblock_chain_info(c, rows, int(kind == "wgmma"), ta, tb,
+                                     ring_stages(c, rows, bf16, route), int(bf16),
+                                     ctypes.byref(regs), ctypes.byref(ctas),
+                                     ctypes.byref(smem))
     if err != 0:
         raise RuntimeError("resblock_chain kernel query failed: "
                            + lib.wv_error_string(err).decode())
-    return regs.value, ctas.value
+    return regs.value, ctas.value, smem.value
 
 
 def _check(x: torch.Tensor, ws: Sequence[torch.Tensor], m: int) -> None:
@@ -434,22 +577,34 @@ def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
     in the launches :func:`chain_plan` picks; ``launches`` counts kernel
     launches (one per entry of the plan)."""
     ws = (pw1s, dw1s, b1s, pw2s, dw2s, b2s)
-    m = len(prescales)
     if x.device.type == "cpu":
         return resblock_chain_ref(x, *ws, prescales=prescales,
                                   res_scale=res_scale, alpha=alpha)
     if x.device.type != "cuda":
         raise RuntimeError(f"resblock_chain: unsupported device {x.device}")
+    return _run(x, ws, prescales, res_scale, alpha)
+
+
+def _run(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale, alpha,
+         route: Optional[Route] = None,
+         plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor: channels padded, weights checked and
+    packed, the launches of :func:`chain_plan` on the width's route (a
+    measurement may name the other route, or another plan)."""
     c = x.shape[1]
+    m = len(prescales)
     x, ws = pad_channels(x, ws)
     _check(x, ws, m)
     k = ws[1].shape[1]
     bf16 = x.dtype == torch.bfloat16
-    ws = (_packed(ws[0], bf16), ws[1], ws[2], _packed(ws[3], bf16), ws[4], ws[5])
+    route = route or product_route(x.shape[1])
+    ws = (_packed(ws[0], bf16, route), ws[1], ws[2], _packed(ws[3], bf16, route), ws[4],
+          ws[5])
     i = 0
-    for blocks, t_tile in chain_plan(x.shape[1], m, k):
+    for blocks, t_tile in plan or chain_plan(x.shape[1], m, k, route):
         sl = slice(i, i + blocks)  # a slice of whole blocks stays contiguous
-        x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile)
+        x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile,
+                    route)
         i += blocks
     return x if x.shape[1] == c else x[:, :c].contiguous()
 
