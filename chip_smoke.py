@@ -311,6 +311,17 @@ def host_ms(torch, fn, iters=10):
     return total / iters * 1e3
 
 
+def span_names():
+    """Names of the port's spans recorded since the last call (they record
+    under a profiler, and show in its averages as ranges on the device);
+    none for a tree of the port without spans (``--ab-times``)."""
+    try:
+        from waveverify_torch import spans
+    except ImportError:
+        return set()
+    return {r["name"] for r in spans.drain()[0]}
+
+
 def device_breakdown(torch, fn, iters=3):
     """Device time by kernel over ``iters`` calls under torch.profiler:
     (busy share of the window, [(kernel, ms per call)] largest first)."""
@@ -318,15 +329,17 @@ def device_breakdown(torch, fn, iters=3):
 
     fn()
     torch.cuda.synchronize()
+    span_names()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    ranges = span_names()  # the port's spans show on the device too: not kernels
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
@@ -1465,12 +1478,14 @@ def time_training(torch, rc, report):
     # a profile of 3 steps
     run_train_step(torch, state, cfg, bank, batches[0], "cuda")
     torch.cuda.synchronize()
+    span_names()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches[1:4]:
             run_train_step(torch, state, cfg, bank, batch, "cuda")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    ranges = span_names()  # the chain backward's range among them
     per_kernel, span_us = {}, 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1478,6 +1493,8 @@ def time_training(torch, rc, report):
         if e.key == rc.BACKWARD_RANGE:
             # the named range's span on the device, not a kernel
             span_us += e.self_device_time_total
+            continue
+        if e.key in ranges:
             continue
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy = sum(per_kernel.values())

@@ -17,6 +17,13 @@ read without JAX by ``waveverify_torch.train.ocdbt``), or random
 initialisation from a seed. After :meth:`WaveVerify.use_mesh`, ``embed_batch`` and
 ``detect_batch`` split the batch across several devices, as the JAX
 package's do over its data mesh.
+
+Under a profiler, ``embed_batch`` and ``detect_batch`` record spans
+(:mod:`waveverify_torch.spans`): the roots ``api.embed_batch`` and
+``api.detect_batch``, and inside them ``api.upload`` (numpy to the card),
+``api.generator`` or ``api.detector`` (the network's enqueue) and
+``api.readback`` (the card to numpy); the single-clip paths record the
+same three.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from waveverify_torch import spans
 from waveverify_torch.api.audio_io import (
     load_audio,
     message_to_tensor,
@@ -241,21 +249,27 @@ class WaveVerify:
     def _embed_on(self, models: WatermarkModels, device: torch.device,
                   audio: np.ndarray, bits: np.ndarray) -> torch.Tensor:
         """Watermarked audio on ``device``, by ``models`` (enqueued)."""
-        x, msg = self._tensor(audio, device), self._tensor(bits, device)
-        residual = models.apply_generator(x.to(self._act), msg.to(self._act))
-        return residual.float() + x
+        with spans.span("api.upload"):
+            x, msg = self._tensor(audio, device), self._tensor(bits, device)
+        with spans.span("api.generator"):
+            residual = models.apply_generator(x.to(self._act), msg.to(self._act))
+            return residual.float() + x
 
     def _embed(self, audio: np.ndarray, bits: np.ndarray) -> np.ndarray:
-        return self._embed_on(self.models, self.device, audio, bits).cpu().numpy()
+        out = self._embed_on(self.models, self.device, audio, bits)
+        with spans.span("api.readback"):
+            return out.cpu().numpy()
 
     @torch.no_grad()
     def _detect_probs(self, audio: np.ndarray,
                       models: Optional[WatermarkModels] = None,
                       device: Optional[torch.device] = None) -> torch.Tensor:
         """Per-sample bit probabilities ``[B, T, nbits]`` on the device."""
-        x = self._tensor(audio, device)
+        with spans.span("api.upload"):
+            x = self._tensor(audio, device)
         models = self.models if models is None else models
-        return torch.sigmoid(models.apply_detector(x.to(self._act)).float())
+        with spans.span("api.detector"):
+            return torch.sigmoid(models.apply_detector(x.to(self._act)).float())
 
     @torch.no_grad()
     def _detect_on(self, models: WatermarkModels, device: torch.device,
@@ -270,7 +284,8 @@ class WaveVerify:
 
     def _detect(self, audio: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
         probs, conf = self._detect_on(self.models, self.device, audio, t)
-        return probs.cpu().numpy(), conf.cpu().numpy()
+        with spans.span("api.readback"):
+            return probs.cpu().numpy(), conf.cpu().numpy()
 
     def _locate(self, audio: np.ndarray) -> np.ndarray:
         """Presence probabilities ``[B, T]``: sigmoid of the locator."""
@@ -406,22 +421,26 @@ class WaveVerify:
         """audio [B, T] float32, bits [B, 16] -> watermarked [B, T]. After
         :meth:`use_mesh` the batch is split across its devices (B must
         divide over them)."""
-        audio, bits = np.asarray(audio), np.asarray(bits)
-        outs = [self._embed_on(models, dev, audio[sl], bits[sl])
-                for (dev, models), sl in zip(
-                    self._mesh, self._shares(audio.shape[0], "embed_batch"))]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        with spans.span("api.embed_batch"):
+            audio, bits = np.asarray(audio), np.asarray(bits)
+            outs = [self._embed_on(models, dev, audio[sl], bits[sl])
+                    for (dev, models), sl in zip(
+                        self._mesh, self._shares(audio.shape[0], "embed_batch"))]
+            with spans.span("api.readback"):
+                return np.concatenate([o.cpu().numpy() for o in outs])
 
     def detect_batch(self, audio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """audio [B, T] -> (bits [B, 16] int, confidence [B]). After
         :meth:`use_mesh` the batch is split across its devices."""
-        audio = np.asarray(audio)
-        outs = [self._detect_on(models, dev, audio[sl], audio.shape[-1])
-                for (dev, models), sl in zip(
-                    self._mesh, self._shares(audio.shape[0], "detect_batch"))]
-        probs = np.concatenate([p.cpu().numpy() for p, _ in outs])
-        conf = np.concatenate([c.cpu().numpy() for _, c in outs])
-        return (probs > 0.5).astype(int), conf
+        with spans.span("api.detect_batch"):
+            audio = np.asarray(audio)
+            outs = [self._detect_on(models, dev, audio[sl], audio.shape[-1])
+                    for (dev, models), sl in zip(
+                        self._mesh, self._shares(audio.shape[0], "detect_batch"))]
+            with spans.span("api.readback"):
+                probs = np.concatenate([p.cpu().numpy() for p, _ in outs])
+                conf = np.concatenate([c.cpu().numpy() for _, c in outs])
+            return (probs > 0.5).astype(int), conf
 
     @staticmethod
     def _validate_watermark_id(

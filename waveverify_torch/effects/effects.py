@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from waveverify_torch import spans
 from waveverify_torch.ops.dsp import (
     bandpass_fir,
     fir_filter,
@@ -626,24 +627,25 @@ class EffectBank:
         """audio, mask ``[B, T]``; effect_idx ``[B]`` branch indices (host
         numpy or a CPU tensor: the grouping is done on the host); fx_draws:
         the draws :meth:`draw_specs` lists, on the audio's device."""
-        idx = np.asarray(torch.as_tensor(effect_idx).cpu())
-        out_a, out_m = audio, mask
-        for e in np.unique(idx):
-            rows = np.flatnonzero(idx == e)
-            if self.dispatch == "scan" and e in self.random_branches:
-                calls = [([i], fx_draws[i]) for i in rows]  # each with its draws
-            else:
-                kw = {}
-                if e in self.random_branches:
-                    kw = take_rows(fx_draws[self.random_branches.index(e)],
-                                   torch.from_numpy(rows))
-                calls = [(rows, kw)]
-            for r, kw in calls:
-                r = torch.as_tensor(r).to(audio.device)
-                a, m = self._fns[e](audio[r], mask[r], None, **kw)
-                out_a = out_a.index_put((r,), a)
-                if m is not None:
-                    out_m = out_m.index_put((r,), m.to(mask.dtype))
+        with spans.span("bank.apply"):
+            idx = np.asarray(torch.as_tensor(effect_idx).cpu())
+            out_a, out_m = audio, mask
+            for e in np.unique(idx):
+                rows = np.flatnonzero(idx == e)
+                if self.dispatch == "scan" and e in self.random_branches:
+                    calls = [([i], fx_draws[i]) for i in rows]  # each with its draws
+                else:
+                    kw = {}
+                    if e in self.random_branches:
+                        kw = take_rows(fx_draws[self.random_branches.index(e)],
+                                       torch.from_numpy(rows))
+                    calls = [(rows, kw)]
+                for r, kw in calls:
+                    r = torch.as_tensor(r).to(audio.device)
+                    a, m = self._fns[e](audio[r], mask[r], None, **kw)
+                    out_a = out_a.index_put((r,), a)
+                    if m is not None:
+                        out_m = out_m.index_put((r,), m.to(mask.dtype))
         return out_a, out_m
 
     @classmethod

@@ -67,6 +67,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from waveverify_torch import spans
+
 MAX_CHANNELS = 768
 KERNEL_SIZES = (3, 5)
 _MAX_BLOCKS = 8  # blocks in one launch (kMaxM in the source)
@@ -666,8 +668,9 @@ class ResblockChainFn(torch.autograd.Function):
     def backward(ctx, g):
         prescales, res_scale, alpha = ctx.statics
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        # a named range, so a profile can sum the plain backward's kernels
-        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+        # a span (and the profiler's range) of this name, so a profile can
+        # sum the plain backward's kernels
+        with spans.span(BACKWARD_RANGE), torch.enable_grad():
             y = resblock_chain_ref(*inputs, prescales=prescales,
                                    res_scale=res_scale, alpha=alpha)
             grads = torch.autograd.grad(y, inputs, g, allow_unused=True)

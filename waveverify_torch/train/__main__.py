@@ -18,7 +18,10 @@ warmup.*`` knob is ported (the training controllers), and so are
 
 So are the JAX trainer's other options: ``--split-disc``,
 ``--steps-per-dispatch``, ``--effect-dispatch``, ``--profile-steps``
-(``torch.profiler``), ``--tensorboard``, ``--wandb`` (a warning and the
+(a ``torch.profiler`` Chrome trace that also carries the port's spans of
+those steps: each step's forward, discriminator update, generator
+backward and update, with their device times),
+``--tensorboard``, ``--wandb`` (a warning and the
 JSONL log where wandb does not import) and ``--debug-nans`` (autograd's
 anomaly mode and a finiteness check per step).
 
@@ -167,7 +170,9 @@ def parse(argv: Optional[Sequence[str]] = None
                     "(no-ops with a warning when wandb is not installed)")
     ap.add_argument("--profile-steps", default=None, metavar="START:STOP",
                     help="torch.profiler trace of steps [START, STOP) to "
-                    "<ckpt-dir>/profile")
+                    "<ckpt-dir>/profile, with the port's spans of each step "
+                    "(its phases and their device times) on a "
+                    "track of their own")
     ap.add_argument("--debug-nans", action="store_true",
                     help="autograd anomaly mode and a finiteness check of "
                     "each step's losses and gradient norms: fail fast on the "

@@ -40,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from waveverify_torch import parallel
+from waveverify_torch import parallel, spans
 from waveverify_torch.config import TrainConfig, model_config_dict
 from waveverify_torch.effects.effects import EffectBank
 from waveverify_torch.effects.effects_config import load_effects_config
@@ -644,7 +644,10 @@ class _StepProfile:
     dispatch's first step as the JAX loop checks it, written as a Chrome
     trace to ``<ckpt_dir>/profile/steps_<first>_<end>.json`` when it stops
     (at ``stop`` or at the end of the run); each rank of a process group
-    traces itself, into ``..._rank<r>.json``."""
+    traces itself, into ``..._rank<r>.json``. The trace carries the port's
+    spans of those steps (:mod:`waveverify_torch.spans`: each step's phases
+    with their device times) on a track of their own, on the trace's
+    clock."""
 
     def __init__(self, ckpt_dir: str, start: Optional[int],
                  stop: Optional[int], device: torch.device):
@@ -660,6 +663,7 @@ class _StepProfile:
         if (self.start is not None and self._prof is None
                 and self._first is None and step >= self.start
                 and (self.stop is None or step < self.stop)):
+            spans.drain()  # spans of an earlier profiler session
             self._prof = torch.profiler.profile(activities=self.activities)
             self._prof.start()
             self._first = step
@@ -676,6 +680,11 @@ class _StepProfile:
         tag = f"_rank{parallel.rank()}" if parallel.world_size() > 1 else ""
         path = self.dir / f"steps_{self._first}_{step}{tag}.json"
         self._prof.export_chrome_trace(str(path))
+        records, dropped = spans.drain()
+        spans.add_to_chrome_trace(path, records)
+        if dropped:
+            logger.warning("profile: %d spans past the first %d not kept", dropped,
+                           spans.MAX_RECORDS)
         self._prof = None
         logger.info("profile of steps [%d, %d) written to %s", self._first, step, path)
 

@@ -22,6 +22,12 @@ them, or the message path's); ``bit_mask`` weighs the bits of every
 decoding loss.
 
 The pieces are functions of their own so a caller can time them apart.
+Under a profiler each step records them as spans
+(:mod:`waveverify_torch.spans`): the root ``train_step`` (``disc_step``
+for the split step's first half) and its device phases ``step.forward``
+(step 1), ``step.disc`` (step 2), ``step.gen_backward`` (step 3's losses
+and backward) and ``step.update`` (steps 4 and 5), one after another on
+the stream.
 
 Across the ranks of a process group (``waveverify_torch.parallel``), each
 rank steps on its own rows of the global batch and the step computes the
@@ -47,7 +53,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from waveverify_torch import parallel
+from waveverify_torch import parallel, spans
 from waveverify_torch.config import LossConfig, TrainConfig
 from waveverify_torch.effects.effects import EffectBank
 from waveverify_torch.losses import (
@@ -218,19 +224,17 @@ def grad_norm(module: torch.nn.Module) -> torch.Tensor:
          if p.grad is not None]))
 
 
-def generator_update(state: TrainState, total: torch.Tensor,
-                     gen_update_scale: float = 1.0,
+def generator_update(state: TrainState, gen_update_scale: float = 1.0,
                      msg_update_scale: float = 1.0) -> Dict[str, torch.Tensor]:
-    """Step 3's backward and step 4: returns the three networks' gradient
-    norms, the generator's before its clip. After the clip the generator's
-    gradients are multiplied by ``gen_update_scale`` and its message path's
+    """Step 4, on the gradients of step 3's backward: returns the three
+    networks' gradient norms, the generator's before its clip. After
+    the clip the generator's gradients are multiplied by
+    ``gen_update_scale`` and its message path's
     (:func:`~waveverify_torch.train.state.in_msg_path`) by
     ``msg_update_scale``; AdamW then steps on them as optax does on the
     scaled tree: at 0 the moments decay and decoupled weight decay still
     applies."""
     models = state.models
-    state.wm_opt.zero_grad(set_to_none=False)
-    total.backward()
     parallel.all_reduce_grads(p for net in ("generator", "detector", "locator")
                               for p in getattr(models, net).parameters())
     norms = {f"grad_norm/{net}": grad_norm(getattr(models, net))
@@ -295,24 +299,30 @@ def train_step(state: TrainState, cfg: TrainConfig, bank: EffectBank,
     discriminator is not updated either, and those two report 0, but the
     adversarial terms still run against it when ``train_disc`` is on:
     :func:`disc_step` has updated it first."""
-    if percep_scale is None:
-        percep_scale = step_ramp(state.step, cfg.loss)
-    outs = forward(state, cfg, bank, audio, msg, effect_idx, draws)
-    if train_disc and update_disc:
-        d_loss, d_norm = discriminator_update(state, cfg, outs["residual"],
-                                              audio, draws.gp_alpha)
-    else:
-        d_loss = d_norm = audio.new_zeros(())
-    logs = generator_losses(state, cfg, outs, audio, msg, percep_scale,
-                            adversarial=train_disc, bit_mask=bit_mask)
-    norms = generator_update(state, logs["loss"], gen_update_scale,
-                             msg_update_scale)
-    state.step += 1
-    losses = parallel.global_means({**{k: v.detach() for k, v in logs.items()},
-                                    "adv/disc_loss": d_loss},
-                                   list(logs) + ["adv/disc_loss"])
-    return {**losses, **norms, "grad_norm/discriminator": d_norm,
-            **feedback(outs, msg)}
+    with spans.span("train_step"):
+        if percep_scale is None:
+            percep_scale = step_ramp(state.step, cfg.loss)
+        with spans.span("step.forward", device=True):
+            outs = forward(state, cfg, bank, audio, msg, effect_idx, draws)
+        if train_disc and update_disc:
+            with spans.span("step.disc", device=True):
+                d_loss, d_norm = discriminator_update(state, cfg, outs["residual"],
+                                                      audio, draws.gp_alpha)
+        else:
+            d_loss = d_norm = audio.new_zeros(())
+        with spans.span("step.gen_backward", device=True):
+            logs = generator_losses(state, cfg, outs, audio, msg, percep_scale,
+                                    adversarial=train_disc, bit_mask=bit_mask)
+            state.wm_opt.zero_grad(set_to_none=False)
+            logs["loss"].backward()
+        with spans.span("step.update", device=True):
+            norms = generator_update(state, gen_update_scale, msg_update_scale)
+            state.step += 1
+            losses = parallel.global_means(
+                {**{k: v.detach() for k, v in logs.items()}, "adv/disc_loss": d_loss},
+                list(logs) + ["adv/disc_loss"])
+            return {**losses, **norms, "grad_norm/discriminator": d_norm,
+                    **feedback(outs, msg)}
 
 
 def disc_step(state: TrainState, cfg: TrainConfig, audio: torch.Tensor,
@@ -322,12 +332,14 @@ def disc_step(state: TrainState, cfg: TrainConfig, audio: torch.Tensor,
     output against the clean audio with the step's ``draws.gp_alpha``.
     ``state.step`` does not move; :func:`train_step` with
     ``update_disc=False`` follows, on the same inputs and draws."""
-    with torch.no_grad():
-        fake = state.models.apply_generator(audio, msg)
-    d_loss, d_norm = discriminator_update(state, cfg, fake, audio,
-                                          draws.gp_alpha)
-    return {"adv/disc_loss": parallel.global_mean(d_loss),
-            "grad_norm/discriminator": d_norm}
+    with spans.span("disc_step"):
+        with spans.span("step.forward", device=True), torch.no_grad():
+            fake = state.models.apply_generator(audio, msg)
+        with spans.span("step.disc", device=True):
+            d_loss, d_norm = discriminator_update(state, cfg, fake, audio,
+                                                  draws.gp_alpha)
+            return {"adv/disc_loss": parallel.global_mean(d_loss),
+                    "grad_norm/discriminator": d_norm}
 
 
 def train_steps(state: TrainState, cfg: TrainConfig, bank: EffectBank,
