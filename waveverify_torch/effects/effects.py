@@ -43,6 +43,7 @@ from waveverify_torch.ops.dsp import (
     lowpass_fir,
     resample,
 )
+from waveverify_torch.ops.uploads import upload_rows
 
 logger = logging.getLogger(__name__)
 
@@ -155,9 +156,9 @@ def move_draws(draws: Any, device) -> Any:
 
 
 def take_rows(draws: Any, rows: torch.Tensor) -> Any:
-    """The rows ``rows`` of every per-sample draw; a 0-d draw (one for the
-    whole batch) is kept as is."""
-    return _map_draws(draws, lambda t: t if t.dim() == 0 else t[rows.to(t.device)])
+    """The rows ``rows`` (on the draws' device, or the CPU) of every
+    per-sample draw; a 0-d draw (one for the whole batch) is kept as is."""
+    return _map_draws(draws, lambda t: t if t.dim() == 0 else t[rows])
 
 
 class AudioEffects:
@@ -626,22 +627,31 @@ class EffectBank:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """audio, mask ``[B, T]``; effect_idx ``[B]`` branch indices (host
         numpy or a CPU tensor: the grouping is done on the host); fx_draws:
-        the draws :meth:`draw_specs` lists, on the audio's device."""
+        the draws :meth:`draw_specs` lists, on the audio's device.
+
+        The rows are grouped by branch on the host and uploaded in one
+        copy that does not block (:func:`upload_rows`); each branch reads
+        its slice of it."""
         with spans.span("bank.apply"):
             idx = np.asarray(torch.as_tensor(effect_idx).cpu())
+            branches, counts = np.unique(idx, return_counts=True)
+            order = np.argsort(idx, kind="stable")  # each branch's rows, ascending
+            rows = upload_rows(order, audio.device)
             out_a, out_m = audio, mask
-            for e in np.unique(idx):
-                rows = np.flatnonzero(idx == e)
+            end = 0
+            for e, n in zip(branches, counts):
+                lo, end = end, end + n
+                r = rows[lo:end]
                 if self.dispatch == "scan" and e in self.random_branches:
-                    calls = [([i], fx_draws[i]) for i in rows]  # each with its draws
+                    # each sample alone, with its own draws
+                    calls = [(r[j:j + 1], fx_draws[i])
+                             for j, i in enumerate(order[lo:end])]
                 else:
                     kw = {}
                     if e in self.random_branches:
-                        kw = take_rows(fx_draws[self.random_branches.index(e)],
-                                       torch.from_numpy(rows))
-                    calls = [(rows, kw)]
+                        kw = take_rows(fx_draws[self.random_branches.index(e)], r)
+                    calls = [(r, kw)]
                 for r, kw in calls:
-                    r = torch.as_tensor(r).to(audio.device)
                     a, m = self._fns[e](audio[r], mask[r], None, **kw)
                     out_a = out_a.index_put((r,), a)
                     if m is not None:

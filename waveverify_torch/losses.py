@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from waveverify_torch.ops.dsp import stft
+from waveverify_torch.ops.uploads import device_const
 
 DiscApply = Callable[[torch.Tensor], List[List[torch.Tensor]]]
 
@@ -136,6 +137,11 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
     return weights.astype(np.float32)
 
 
+def _mel_basis(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """:func:`mel_filterbank` transposed, ``[n_fft // 2 + 1, n_mels]``."""
+    return mel_filterbank(sample_rate, n_fft, n_mels).T.copy()
+
+
 def mel_spectrogram_loss(
     x: torch.Tensor, y: torch.Tensor, sample_rate: int = 16000,
     n_mels: Sequence[int] = (5, 10, 20, 40, 80, 160, 320),
@@ -145,8 +151,7 @@ def mel_spectrogram_loss(
 ) -> torch.Tensor:
     loss = x.new_zeros(())
     for nm, w in zip(n_mels, window_lengths):
-        fb_t = torch.as_tensor(mel_filterbank(sample_rate, w, nm).T.copy(),
-                               dtype=x.dtype, device=x.device)
+        fb_t = device_const(_mel_basis, sample_rate, w, nm, like=x)
         xm = _magnitude(x, w, w // 4) @ fb_t  # [B, frames, n_mels]
         ym = _magnitude(y, w, w // 4) @ fb_t
         if log_weight > 0:

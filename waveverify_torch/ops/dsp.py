@@ -2,10 +2,11 @@
 ``waveverify_tpu/ops/dsp.py``).
 
 The kernels and DFT bases are built in numpy exactly as the JAX package
-builds them and applied with ``F.conv1d`` or a matmul along the last axis
-of ``[..., T]`` audio, in the audio's dtype and on its device. The JAX
-package leaves these to XLA, so plain PyTorch (cuDNN and cuBLAS on the
-card) is their counterpart.
+builds them, kept on each device in each dtype
+(:data:`~waveverify_torch.ops.uploads.device_const`), and applied with
+``F.conv1d`` or a matmul along the last axis of ``[..., T]`` audio, in the
+audio's dtype and on its device. The JAX package leaves these to XLA, so
+plain PyTorch (cuDNN and cuBLAS on the card) is their counterpart.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from waveverify_torch.ops.uploads import device_const
 
 
 def _hann(n: np.ndarray, width: float) -> np.ndarray:
@@ -53,11 +56,14 @@ def fir_filter(x: torch.Tensor, kernel) -> torch.Tensor:
     return F.conv1d(xf, w).reshape(shape)
 
 
+def _lowpass_kernel(cutoff: float, zeros: int) -> np.ndarray:
+    return _sinc_filter(cutoff, filter_half_width(cutoff, zeros), zeros)
+
+
 def lowpass_fir(x: torch.Tensor, cutoff: float, zeros: int = 8) -> torch.Tensor:
     """Lowpass at a normalised cutoff (cycles per sample, 0..0.5)."""
-    cutoff = float(cutoff)
-    return fir_filter(x, _sinc_filter(cutoff, filter_half_width(cutoff, zeros),
-                                      zeros))
+    return fir_filter(x, device_const(_lowpass_kernel, float(cutoff), zeros,
+                                      like=x))
 
 
 def highpass_fir(x: torch.Tensor, cutoff: float, zeros: int = 8) -> torch.Tensor:
@@ -98,6 +104,13 @@ def resample_kernel(orig_freq: int, new_freq: int, zeros: int = 24,
     return kernels.T[:, None, :].astype(np.float32), p, q
 
 
+def _resample_weight(orig_freq: int, new_freq: int, zeros: int,
+                     rolloff: float) -> np.ndarray:
+    """:func:`resample_kernel`'s kernels as conv weights ``[q, 1, L]``."""
+    kernel, _, _ = resample_kernel(orig_freq, new_freq, zeros, rolloff)
+    return np.ascontiguousarray(kernel.transpose(2, 1, 0))
+
+
 def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
              zeros: int = 24, rolloff: float = 0.945) -> torch.Tensor:
     """Rational-rate resampling along the last axis: ``[..., T]`` ->
@@ -114,8 +127,8 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int,
     width = (length - p) // 2
     # frame k reads x[k p - width : k p - width + L]
     pad_right = max(0, (n_frames - 1) * p - width + length - t)
-    w = torch.as_tensor(np.ascontiguousarray(kernel_np.transpose(2, 1, 0)),
-                        dtype=x.dtype, device=x.device)  # [q, 1, L]
+    w = device_const(_resample_weight, orig_freq, new_freq, zeros, rolloff,
+                     like=x)  # [q, 1, L]
     xf = F.pad(x.reshape(-1, 1, t), (width, pad_right))
     y = F.conv1d(xf, w, stride=p)[:, :, :n_frames]  # [N, q, frames]
     y = y.transpose(1, 2).reshape(y.shape[0], -1)[:, :out_t]
@@ -148,12 +161,8 @@ def _rdft_basis(n_fft: int) -> np.ndarray:
     return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
 
 
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
-
-
 def _rdft(frames: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    out = torch.matmul(frames, _const(_rdft_basis(n_fft), frames))
+    out = torch.matmul(frames, device_const(_rdft_basis, n_fft, like=frames))
     f = n_fft // 2 + 1
     return out[..., :f], out[..., f:]
 
@@ -173,7 +182,7 @@ def stft(x: torch.Tensor, n_fft: int, hop: int,
     n_fft // 2 + 1]``; reflect-padded by n_fft // 2 on each side when
     ``center``, Hann window by default."""
     if window is None:
-        window = _const(_hann_window(n_fft), x)
+        window = device_const(_hann_window, n_fft, like=x)
     if center:
         x = _reflect_pad(x, n_fft // 2, n_fft // 2)
     return _rdft(frame_signal(x, n_fft, hop) * window, n_fft)
@@ -193,6 +202,6 @@ def stft_match_stride(x: torch.Tensor, window_length: int,
     right_align = int(math.ceil(t / hop)) * hop - t
     pad = (window_length - hop) // 2
     x = _reflect_pad(x, pad, pad + right_align)
-    frames = frame_signal(x, window_length, hop) * _const(
-        _hann_window(window_length), x)
+    frames = frame_signal(x, window_length, hop) * device_const(
+        _hann_window, window_length, like=x)
     return _rdft(frames, window_length)

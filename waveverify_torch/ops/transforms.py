@@ -1,9 +1,11 @@
 """Audio analysis and synthesis transforms: STDCT, MDCT, PQMF (counterpart
 of ``waveverify_tpu/ops/transforms.py``).
 
-Each transform holds a numpy filter bank built at construction and runs
-one strided ``F.conv1d`` (analysis) or ``F.conv_transpose1d`` (synthesis)
-per call, on the input's device and dtype. Shapes follow the JAX package:
+Each transform holds a numpy filter bank built at construction, kept on
+each device in each dtype under its content
+(:data:`~waveverify_torch.ops.uploads.device_const`), and runs one strided
+``F.conv1d`` (analysis) or ``F.conv_transpose1d`` (synthesis) per call, on
+the input's device and dtype. Shapes follow the JAX package:
 waveforms ``[B, T]``, spectra ``[B, frames, bins]``. On the card the
 convolutions take cuDNN's TF32 setting (``serve.strict_f32`` turns it off).
 """
@@ -11,11 +13,13 @@ convolutions take cuDNN's TF32 setting (``serve.strict_f32`` turns it off).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from waveverify_torch.ops.uploads import device_const
 
 PI = math.pi
 
@@ -26,23 +30,34 @@ DEFAULT_TAPS = 62
 DEFAULT_SUBBANDS = 4
 
 
-def _bank(bank: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(bank, dtype=like.dtype, device=like.device)
+BankKey = Tuple[bytes, Tuple[int, ...]]
 
 
-def _conv_bank(x: torch.Tensor, bank: np.ndarray, stride: int,
+def _frombuffer(data: bytes, shape: Tuple[int, ...]) -> np.ndarray:
+    return np.frombuffer(data, np.float32).reshape(shape).copy()
+
+
+def _key(bank: np.ndarray) -> BankKey:
+    """An f32 bank by its content, as :func:`_frombuffer` rebuilds it."""
+    return np.ascontiguousarray(bank, np.float32).tobytes(), bank.shape
+
+
+def _conv_bank(x: torch.Tensor, bank: BankKey, stride: int,
                padding: int) -> torch.Tensor:
-    """x ``[B, T]``; bank ``[bins, K]`` -> ``[B, frames, bins]``, a strided
-    correlation with zero padding on both sides."""
-    w = _bank(bank, x)[:, None, :]  # (bins, 1, K)
+    """x ``[B, T]``; bank ``[bins, K]`` (its :func:`_key`) -> ``[B,
+    frames, bins]``, a strided correlation with zero padding on both
+    sides."""
+    w = device_const(_frombuffer, *bank, like=x)[:, None, :]  # (bins, 1, K)
     return F.conv1d(x[:, None, :], w, stride=stride, padding=padding).transpose(1, 2)
 
 
-def _convt_bank(spec: torch.Tensor, bank: np.ndarray, stride: int,
+def _convt_bank(spec: torch.Tensor, bank: BankKey, stride: int,
                 padding: int, output_padding: int) -> torch.Tensor:
-    """spec ``[B, frames, bins]``; bank ``[bins, K]`` -> ``[B, T]``, torch
-    ``conv_transpose1d(stride, padding, output_padding)``."""
-    w = _bank(bank, spec)[:, None, :]  # (Cin = bins, Cout = 1, K)
+    """spec ``[B, frames, bins]``; bank ``[bins, K]`` (its :func:`_key`) ->
+    ``[B, T]``, torch ``conv_transpose1d(stride, padding,
+    output_padding)``."""
+    # (Cin = bins, Cout = 1, K)
+    w = device_const(_frombuffer, *bank, like=spec)[:, None, :]
     return F.conv_transpose1d(spec.transpose(1, 2), w, stride=stride,
                               padding=padding,
                               output_padding=output_padding)[:, 0]
@@ -68,19 +83,21 @@ class STDCT:
         basis[0] /= math.sqrt(2.0)  # orthonormal DCT-II first row
         self.filter = (basis * window[None, :]).astype(np.float32)  # [N, N]
         self.window_square = (window ** 2).astype(np.float32)
+        self._filter = _key(self.filter)
+        self._window_square = _key(self.window_square[None, :])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x ``[B, T]`` -> ``[B, frames, N]``."""
-        y = _conv_bank(x, self.filter, self.hop_size, self.padding)
+        y = _conv_bank(x, self._filter, self.hop_size, self.padding)
         return y[:, :-1, :] if self.clip else y
 
     def inverse(self, spec: torch.Tensor) -> torch.Tensor:
         """spec ``[B, frames, N]`` -> ``[B, T]``, divided by the overlapped
         window energy (floored at 1e-11, the NOLA condition)."""
-        wav = _convt_bank(spec, self.filter, self.hop_size, self.padding,
+        wav = _convt_bank(spec, self._filter, self.hop_size, self.padding,
                           self.output_padding)
         ones = spec.new_ones((1, spec.shape[1], 1))
-        wsq = _convt_bank(ones, self.window_square[None, :], self.hop_size,
+        wsq = _convt_bank(ones, self._window_square, self.hop_size,
                           self.padding, self.output_padding)
         return wav / torch.clamp(wsq, min=1e-11)
 
@@ -108,16 +125,17 @@ class MDCT:
         if normalize:
             basis = basis / math.sqrt(N)
         self.filter = basis.astype(np.float32)  # [N, 2N]
+        self._filter = _key(self.filter)
+        self._inverse = _key(self.filter if normalize else self.filter / N)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x ``[B, N * frames]`` -> ``[B, frames + 1, N]``."""
-        return _conv_bank(x, self.filter, self.N, self.N)
+        return _conv_bank(x, self._filter, self.N, self.N)
 
     def inverse(self, spec: torch.Tensor) -> torch.Tensor:
         """spec ``[B, frames + 1, N]`` -> ``[B, N * frames]`` (TDAC
         overlap-add)."""
-        f = self.filter if self.normalize else self.filter / self.N
-        return _convt_bank(spec, f, self.N, self.N, 0)
+        return _convt_bank(spec, self._inverse, self.N, self.N, 0)
 
 
 def design_prototype_filter(taps: int = DEFAULT_TAPS,
@@ -158,14 +176,15 @@ class PQMF:
                             + ((-1.0) ** k) * PI / 4)
         self.bank = (2.0 * h_proto[None, :] * modulation
                      * math.sqrt(subbands)).astype(np.float32)  # [subbands, taps + 1]
+        self._bank = _key(self.bank)
 
     def analysis(self, x: torch.Tensor) -> torch.Tensor:
         """x ``[B, T]`` -> subbands ``[B, T // subbands, subbands]``."""
-        return _conv_bank(x, self.bank, self.subbands, self.taps // 2)
+        return _conv_bank(x, self._bank, self.subbands, self.taps // 2)
 
     def synthesis(self, subband_signals: torch.Tensor) -> torch.Tensor:
         """``[B, frames, subbands]`` -> ``[B, frames * subbands]``."""
-        return _convt_bank(subband_signals, self.bank, self.subbands,
+        return _convt_bank(subband_signals, self._bank, self.subbands,
                            self.taps // 2, self.subbands - 1)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
