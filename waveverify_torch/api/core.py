@@ -10,6 +10,13 @@ length. Audio longer than ``long_threshold`` goes through fixed windows
 (the chunked long-audio path). Runs on ``cuda`` unless ``device="cpu"``
 is passed.
 
+WaveVerify serves AudioSeal too (``config=AudioSealConfig()``;
+``models/audioseal.py``): its generator and detector, with its own
+decisions (bits from the sigmoid of each logit's time-mean, the detection
+score and the presence channel from the detector's softmax). AudioSeal is
+neither causal nor stateless in time (its bottleneck is an LSTM), so every
+input runs whole at its own length: no bucket padding, no windows.
+
 Weights come from a ``save_weights_npz`` file, a reference ``.pth`` (the
 paper's checkpoint format, converted by ``waveverify_torch.convert``), a
 checkpoint directory of the port's trainer or of the JAX trainer (orbax,
@@ -45,8 +52,14 @@ from waveverify_torch.api.audio_io import (
     tensor_to_message,
 )
 from waveverify_torch.api.watermark_id import WatermarkID
-from waveverify_torch.config import TrainConfig, apply_model_config, load_config
+from waveverify_torch.config import (
+    AudioSealConfig,
+    TrainConfig,
+    apply_model_config,
+    load_config,
+)
 from waveverify_torch.models import WatermarkModels
+from waveverify_torch.models.audioseal import AudioSealModels, init_audioseal
 from waveverify_torch.serve import (
     locate_probs,
     resolve_device,
@@ -94,11 +107,16 @@ class WaveVerify:
         - ``None``: random initialisation from ``seed`` (drawn on a CPU
           generator, so a seed gives the same weights on every device);
           embedding works end to end, detection needs trained weights.
+        Under an ``AudioSealConfig``: a pair of AudioSeal's checkpoints
+        (generator, detector: ``generator_base.pth`` / ``detector_base.pth``
+        or state dicts of ``AudioSealWM`` / ``AudioSealDetector``), or
+        ``None`` for PyTorch's default initialisers drawn from ``seed``.
         A missing, extra or misshapen weight raises.
     config_path: a YAML of the ``conf/base.yml`` schema. config: a
-        ``TrainConfig``. An explicit ``config`` wins; otherwise the
-        checkpoint's snapshot overrides the YAML's (or the defaults')
-        model sections, with a WARNING when a YAML was given too.
+        ``TrainConfig``, or an ``AudioSealConfig`` to serve AudioSeal. An
+        explicit ``config`` wins; otherwise the checkpoint's snapshot
+        overrides the YAML's (or the defaults') model sections, with a
+        WARNING when a YAML was given too.
     precision: ``"highest"`` (the default) turns TF32 off for cuDNN and
         cuBLAS, so f32 computes in f32; ``"high"`` / ``"default"`` allow
         TF32; ``None`` leaves the process-wide setting alone. A
@@ -108,9 +126,9 @@ class WaveVerify:
     device: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
     """
 
-    def __init__(self, checkpoint_path: Optional[Union[str, Path]] = None,
+    def __init__(self, checkpoint_path: Optional[Union[str, Path, Sequence]] = None,
                  config_path: Optional[Union[str, Path]] = None,
-                 config: Optional[TrainConfig] = None,
+                 config: Optional[Union[TrainConfig, AudioSealConfig]] = None,
                  seed: int = 0,
                  precision: Optional[str] = "highest",
                  serve_dtype: str = "float32",
@@ -120,6 +138,33 @@ class WaveVerify:
         self._act = resolve_dtype(serve_dtype)
         if precision is not None:
             set_conv_precision(precision)
+        if isinstance(config, AudioSealConfig):
+            self._load_audioseal(checkpoint_path, config, seed)
+        else:
+            self._load_waveverify(checkpoint_path, config_path, config, seed)
+        self.models.requires_grad_(False)
+        self.models.eval().to(self.device)
+        # the devices batched serving splits over, each with its replica:
+        # the constructor's device alone until use_mesh
+        self._mesh: List[Tuple[torch.device, WatermarkModels]] = [
+            (self.device, self.models)]
+
+    def _load_audioseal(self, checkpoint_path, config: AudioSealConfig, seed: int) -> None:
+        self.config = config
+        self.models = AudioSealModels(config)
+        if checkpoint_path is None:
+            logger.warning("no checkpoint given - using randomly initialized "
+                           "weights")
+            init_audioseal(self.models, torch.Generator().manual_seed(seed))
+        else:
+            from waveverify_torch.convert import load_audioseal
+
+            generator_path, detector_path = checkpoint_path
+            load_audioseal(self.models, generator_path, detector_path)
+        self.sample_rate = config.sample_rate
+        self.hop = config.hop_length
+
+    def _load_waveverify(self, checkpoint_path, config_path, config, seed: int) -> None:
         path = None if checkpoint_path is None else Path(checkpoint_path)
         is_pth = path is not None and path.suffix in (".pth", ".pt", ".ckpt")
         flat, snap = (None, None) if path is None or is_pth else self._read_weights(path)
@@ -153,14 +198,8 @@ class WaveVerify:
             extra = sorted(set(flat) - consumed)
             if extra:
                 raise KeyError(f"{path}: entries no network takes: {extra[:5]}")
-        self.models.requires_grad_(False)
-        self.models.eval().to(self.device)
         self.sample_rate = self.config.generator.sample_rate
         self.hop = self.config.generator.hop_length
-        # the devices batched serving splits over, each with its replica:
-        # the constructor's device alone until use_mesh
-        self._mesh: List[Tuple[torch.device, WatermarkModels]] = [
-            (self.device, self.models)]
 
     # -- multi-device serving ------------------------------------------------------
 
@@ -274,13 +313,17 @@ class WaveVerify:
     @torch.no_grad()
     def _detect_on(self, models: WatermarkModels, device: torch.device,
                    audio: np.ndarray, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(bit probabilities [B, nbits], confidence [B]) on ``device``,
-        sigmoid(logits) averaged over the first ``t`` samples only
-        (enqueued)."""
-        probs = self._detect_probs(audio, models, device)
-        valid = (torch.arange(probs.shape[1], device=probs.device) < t)[None, :, None]
-        probs = torch.sum(probs * valid, dim=1) / max(t, 1)
-        return probs, probs.mean(dim=1)
+        """(bit probabilities [B, nbits], confidence [B]) on ``device``
+        over the first ``t`` samples only (enqueued), by the holder's
+        ``decide``. WaveVerify: the time-mean of sigmoid(logits) per bit,
+        and as confidence their mean. AudioSeal: the sigmoid of each bit
+        logit's time-mean, and as confidence the detection score, the share
+        of samples whose presence probability exceeds 0.5."""
+        with spans.span("api.upload"):
+            x = self._tensor(audio, device)
+        with spans.span("api.detector"):
+            logits = models.apply_detector(x.to(self._act)).float()
+        return models.decide(logits, t)
 
     def _detect(self, audio: np.ndarray, t: int) -> Tuple[np.ndarray, np.ndarray]:
         probs, conf = self._detect_on(self.models, self.device, audio, t)
@@ -293,8 +336,11 @@ class WaveVerify:
                             self.serve_dtype).cpu().numpy()
 
     def _pad_bucket(self, audio: np.ndarray) -> Tuple[np.ndarray, int]:
+        """``[1, bucket]`` and the length; a holder that takes its input
+        whole (AudioSeal's) has the length as its bucket."""
         t = audio.shape[-1]
-        x = np.zeros((1, _next_bucket(t, self.hop)), np.float32)
+        n = t if self.models.whole_input else _next_bucket(t, self.hop)
+        x = np.zeros((1, n), np.float32)
         x[0, :t] = audio
         return x, t
 
@@ -308,7 +354,7 @@ class WaveVerify:
     # so conv framing and the spec blocks' STFT phases line up). One window
     # length serves the whole stream.
 
-    long_threshold: int = 60 * 16000   # chunk above this many samples
+    long_threshold: int = 60 * 16000   # chunk above this many samples (not whole_input)
     chunk_samples: int = 160000        # 10 s per window, context excluded
     chunk_context: int = 16000         # 1 s, far beyond the receptive field
 
@@ -335,6 +381,11 @@ class WaveVerify:
             out_len = min(w - keep_from, t - s)
             yield buf, keep_from, s, out_len
             s += out_len
+
+    def _chunked(self, t: int) -> bool:
+        """Whether ``t`` samples go through windows: over the threshold, and
+        never for a holder that takes its input whole (AudioSeal's)."""
+        return t > self.long_threshold and not self.models.whole_input
 
     def _embed_long(self, audio: np.ndarray, bits: np.ndarray) -> np.ndarray:
         """audio [T], bits [1, nbits] -> watermarked [T]."""
@@ -371,7 +422,7 @@ class WaveVerify:
         wm = self._validate_watermark_id(watermark)
         audio, sr = load_audio(audio_path, self.sample_rate)
         bits = message_to_tensor(wm.to_bits())
-        if audio.shape[-1] > self.long_threshold:
+        if self._chunked(audio.shape[-1]):
             out = self._embed_long(np.asarray(audio, np.float32).ravel(), bits)
         else:
             x, t = self._pad_bucket(audio)
@@ -388,7 +439,7 @@ class WaveVerify:
     def detect_array(self, audio: np.ndarray) -> Tuple[WatermarkID, float]:
         """Detect from an in-memory float32 array."""
         audio = np.asarray(audio, np.float32).ravel()
-        if audio.shape[-1] > self.long_threshold:
+        if self._chunked(audio.shape[-1]):
             bit_probs, conf = self._detect_long(audio)
             return WatermarkID.custom(tensor_to_message(bit_probs[None, :])), conf
         x, t = self._pad_bucket(audio)
@@ -403,9 +454,10 @@ class WaveVerify:
     def locate_array(self, audio: np.ndarray) -> np.ndarray:
         """Presence mask from an in-memory float32 array. The locator works
         at sample resolution, so trimming the bucket's padding gives the
-        mask at the input's length."""
+        mask at the input's length. AudioSeal's mask is its detector's
+        presence channel."""
         audio = np.asarray(audio, np.float32).ravel()
-        if audio.shape[-1] > self.long_threshold:
+        if self._chunked(audio.shape[-1]):
             return self._locate_long(audio)
         x, t = self._pad_bucket(audio)
         return self._locate(x)[0, :t]
@@ -430,8 +482,9 @@ class WaveVerify:
                 return np.concatenate([o.cpu().numpy() for o in outs])
 
     def detect_batch(self, audio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """audio [B, T] -> (bits [B, 16] int, confidence [B]). After
-        :meth:`use_mesh` the batch is split across its devices."""
+        """audio [B, T] -> (bits [B, 16] int, confidence [B]; see
+        :meth:`_detect_on` for each model's). After :meth:`use_mesh` the
+        batch is split across its devices."""
         with spans.span("api.detect_batch"):
             audio = np.asarray(audio)
             outs = [self._detect_on(models, dev, audio[sl], audio.shape[-1])

@@ -267,6 +267,79 @@ class TrainConfig:
     sub_hop_jitter: bool = False
 
 
+@dataclass(frozen=True)
+class AudioSealConfig:
+    """AudioSeal (San Roman et al., ICML 2024): audiocraft's SEANet with an
+    LSTM bottleneck, a summed message embedding and a detector head at the
+    sample rate. The fields are the model cards' ``seanet`` keys under
+    their card names (``src/audioseal/cards/audioseal_wm_16bits.yaml`` and
+    ``audioseal_detector_16bits.yaml``), the decoder's and the detector's
+    sections, ``nbits``, and the rate and ``alpha`` AudioSeal embeds at;
+    the defaults are the 16-bit cards'."""
+
+    channels: int = 1
+    dimension: int = 128
+    n_filters: int = 32
+    n_residual_layers: int = 1
+    ratios: Tuple[int, ...] = (8, 5, 4, 2)
+    activation: str = "ELU"
+    activation_params: Dict[str, float] = field(default_factory=lambda: {"alpha": 1.0})
+    norm: str = "weight_norm"
+    norm_params: Dict[str, Any] = field(default_factory=dict)
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    dilation_base: int = 2
+    causal: bool = False
+    pad_mode: str = "constant"
+    true_skip: bool = True
+    compress: int = 2
+    lstm: int = 2
+    disable_norm_outer_blocks: int = 0
+    # the generator card's ``decoder`` section
+    final_activation: Optional[str] = None
+    final_activation_params: Optional[Dict[str, float]] = None
+    trim_right_ratio: float = 1.0
+    nbits: int = 16
+    # the detector card's ``detector`` section
+    output_dim: int = 32
+    sample_rate: int = 16000
+    alpha: float = 1.0
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for r in self.ratios:
+            out *= r
+        return out
+
+    @classmethod
+    def from_card(cls, *cards: Dict[str, Any]) -> "AudioSealConfig":
+        """A config from one or more dicts of a model card's layout
+        (``seanet``, ``decoder``, ``detector``, ``nbits``; ``sample_rate``
+        and ``alpha`` where given): the generator's card and the
+        detector's may be passed together, and must then agree on their
+        ``seanet`` section and ``nbits``."""
+        valid = {f.name for f in dataclasses.fields(cls)}
+        kwargs: Dict[str, Any] = {}
+        for card in cards:
+            parts = dict(card.get("seanet", {}))
+            for section in ("decoder", "detector"):
+                parts.update(card.get(section) or {})
+            parts.update({k: card[k] for k in ("nbits", "sample_rate", "alpha")
+                          if k in card})
+            for key, value in parts.items():
+                if key not in valid:
+                    continue
+                if isinstance(value, list):
+                    value = tuple(value)
+                if key in kwargs and kwargs[key] != value:
+                    raise ValueError(f"the cards disagree on {key}: "
+                                     f"{kwargs[key]!r} and {value!r}")
+                kwargs[key] = value
+        return cls(**kwargs)
+
+
 def _build(cls, section: Dict[str, Any]):
     valid = {f.name for f in dataclasses.fields(cls)}
     kwargs: Dict[str, Any] = {}

@@ -441,3 +441,106 @@ def save_converted(path: Union[str, Path], out_dir: Union[str, Path],
     return write_state(Path(out_dir) / "latest",
                        {"step": np.asarray(0, np.int32), "wm_params": wm_params},
                        {"source": str(path), "model_config": model_config_dict(cfg)})
+
+
+# ---------------------------------------------------------------------------
+# AudioSeal
+# ---------------------------------------------------------------------------
+
+# AudioSeal's keys -> the port's (``AudioSealModels``), applied in order: the
+# generator's tree is ``AudioSealWM``'s (encoder, decoder, msg_processor),
+# the detector's ``AudioSealDetector``'s (``detector.0`` the encoder and its
+# transposed conv, ``detector.1`` the 1x1 conv); a conv's leaves lose the
+# inner module of audiocraft's ``NormConv1d`` / ``NormConvTranspose1d``.
+# A conv's ``weight`` / ``bias`` then become the port's ``v`` (and ``g =
+# ||W||`` under weight norm) / ``b``; every other leaf keeps its name.
+AUDIOSEAL_NAMES = (
+    (r"^(encoder|decoder|msg_processor)\.", r"generator.\1."),
+    (r"^detector\.0\.model\.", "detector.encoder.model."),
+    (r"^detector\.0\.reverse_convolution\.", "detector.reverse_convolution."),
+    (r"^detector\.1\.", "detector.last_layer."),
+    (r"\.conv\.conv\.", ".conv."),
+    (r"\.convtr\.convtr\.", ".convtr."),
+)
+
+
+def fuse_weight_g_v(sd: StateDict) -> StateDict:
+    """Fuse ``torch.nn.utils.weight_norm``'s ``weight_g`` / ``weight_v``
+    into ``weight = g * v / ||v||`` (norm over all dims but 0, in
+    float64)."""
+    out: StateDict = {}
+    for key, value in sd.items():
+        if key.endswith(".weight_v"):
+            base = key[:-len(".weight_v")]
+            axes = tuple(range(1, value.ndim))
+            norm = np.sqrt((value.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
+            out[f"{base}.weight"] = (sd[f"{base}.weight_g"] * value
+                                     / np.maximum(norm, 1e-12)).astype(np.float32)
+        elif not key.endswith(".weight_g"):
+            out.setdefault(key, value)
+    return out
+
+
+def load_audioseal_state_dict(path: Union[str, Path]) -> StateDict:
+    """One of AudioSeal's checkpoints (``generator_base.pth``,
+    ``detector_base.pth``, or a state dict of either tree saved with
+    ``torch.save``; a ``model`` entry is its state dict) -> numpy float32,
+    ``module.`` / ``_orig_mod.`` prefixes stripped, weight norm and
+    parametrizations fused."""
+    import torch
+
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
+        ckpt = ckpt["model"]
+    sd = {_strip_prefix(k): np.asarray(v.detach().cpu().float().numpy(), np.float32)
+          for k, v in ckpt.items()}
+    return fuse_parametrizations(fuse_weight_g_v(sd))
+
+
+def convert_audioseal(generator_sd: StateDict, detector_sd: StateDict,
+                      models) -> Dict[str, Array]:
+    """AudioSeal's generator and detector state dicts (fused, as
+    :func:`load_audioseal_state_dict` gives them) -> the state dict of
+    ``models`` (an ``AudioSealModels``), through :data:`AUDIOSEAL_NAMES`.
+    A key that maps onto no parameter, a parameter no key fills, or a shape
+    that differs raises."""
+    target = {k: tuple(v.shape) for k, v in models.state_dict().items()}
+    out: Dict[str, Array] = {}
+    for sd in (generator_sd, detector_sd):
+        for key, value in sd.items():
+            name = key
+            for pattern, repl in AUDIOSEAL_NAMES:
+                name = re.sub(pattern, repl, name)
+            stem, _, leaf = name.rpartition(".")
+            if leaf == "weight" and f"{stem}.v" in target:
+                out[f"{stem}.v"] = value
+                if f"{stem}.g" in target:
+                    axes = tuple(range(1, value.ndim))
+                    out[f"{stem}.g"] = np.sqrt(
+                        (value.astype(np.float64) ** 2).sum(axis=axes)).astype(np.float32)
+            elif leaf == "bias" and f"{stem}.b" in target:
+                out[f"{stem}.b"] = value
+            else:
+                out[name] = value
+    extra = sorted(set(out) - set(target))
+    if extra:
+        raise KeyError(f"AudioSeal entries no parameter takes: {extra[:5]}")
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"parameters not in the AudioSeal checkpoints: {missing[:5]}")
+    for name, shape in target.items():
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(out[name].shape)} != {shape}")
+    return out
+
+
+def load_audioseal(models, generator_path: Union[str, Path],
+                   detector_path: Union[str, Path]) -> None:
+    """Copy AudioSeal's two checkpoints into ``models`` (an
+    ``AudioSealModels``)."""
+    import torch
+
+    flat = convert_audioseal(load_audioseal_state_dict(generator_path),
+                             load_audioseal_state_dict(detector_path), models)
+    models.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                            for k, v in flat.items()})

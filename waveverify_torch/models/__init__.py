@@ -4,6 +4,8 @@ JAX package's ``WatermarkModels.apply_generator`` / ``apply_detector`` /
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 from torch import nn
 
@@ -27,6 +29,10 @@ class WatermarkModels(nn.Module):
     ``discriminator=True`` the training discriminator (serving leaves it
     out)."""
 
+    # serving may pad an input to a bucket and cut a long one into windows
+    # (the networks are causal and their receptive field is short)
+    whole_input = False
+
     def __init__(self, cfg: TrainConfig, discriminator: bool = False):
         super().__init__()
         self.generator = Generator(cfg.generator)
@@ -47,6 +53,16 @@ class WatermarkModels(nn.Module):
     def apply_locator(self, audio: torch.Tensor) -> torch.Tensor:
         """audio ``[B, T]`` -> presence logits ``[B, T]``."""
         return self.locator(audio[:, None, :])[..., 0]
+
+    @staticmethod
+    def decide(logits: torch.Tensor, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(bit probabilities ``[B, nbits]``, confidence ``[B]``) from the
+        detector's logits ``[B, T, nbits]`` over their first ``t`` samples:
+        the time-mean of sigmoid(logits) per bit, and their mean."""
+        probs = torch.sigmoid(logits)
+        valid = (torch.arange(probs.shape[1], device=probs.device) < t)[None, :, None]
+        probs = torch.sum(probs * valid, dim=1) / max(t, 1)
+        return probs, probs.mean(dim=1)
 
     def apply_discriminator(self, audio: torch.Tensor):
         """audio ``[B, T]`` -> one list of feature maps per sub-discriminator,
