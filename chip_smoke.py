@@ -17,7 +17,12 @@ Phases, each fatal on failure:
      Function's gradients; then chains off the shipped configs through the
      seanet gate (ROUTE_CHAINS): C = 1024 on the plain path, C = 40 and 24
      on padded channels with M = 10, k = 3 at C = 64 and 256, each with its
-     launches read around it;
+     launches read around it; then AudioSeal's recurrence kernel
+     (csrc/lstm_recurrence.cu): its build (any spill fails), against the
+     reference's loop of f32 products at LSTM_TOL at the serving path's
+     shape (H 512, B 8, T 1500) and five more (batch groups, a ragged
+     group, one frame, three layers, a launch per layer), the TF32 control
+     failing there, and against its plain version at a small shape;
   4. the paths, each with the kernel's launch count read around it, f32
      and bf16, on the committed r5 checkpoint:
      a. embed+detect: WaveVerify.embed_batch / detect_batch and
@@ -30,6 +35,9 @@ Phases, each fatal on failure:
      d. the robustness sweep (eval.run_sweep) at the CLI's defaults, row by
         row against the JAX package's CPU run of the same sweep, with the
         deltas to its committed sweeps of r5 printed beside;
+     e. AudioSeal (random init) through embed_batch / detect_batch at 8 x
+        30 s, the recurrence kernel's launches read around each call (2 and
+        1);
   5. times (CUDA events, after warm-up): embed+detect and locate clips/s at
      batch 64, the host time to submit one call, the device's busy share,
      the long-audio path's seconds and real-time factor, the sweep's wall
@@ -37,7 +45,9 @@ Phases, each fatal on failure:
      kernel, the other route where it can run the width, the plain
      version, the bound and the share of it reached, the product's rows
      per pass, ring stages, shared memory, registers and CTAs per SM, and
-     the chain's C x C products alone through torch.matmul;
+     the chain's C x C products alone through torch.matmul; the
+     recurrence kernel per AudioSeal embed+detect against cuDNN's nn.LSTM
+     (library_ms), the reference's loop and its bound;
   6. training at TrainConfig() (conf/base.yml, full width), f32 with TF32
      off: at each of its 10 chain shapes, the kernel's autograd Function
      inside torch.utils.checkpoint against the plain version's gradients
@@ -717,6 +727,213 @@ def check_routes(torch, rc, report):
     report["routes"] = out
     print("routes through the seanet gate (launches, max |err| vs plain): " + "; ".join(
         f"{k} {v['launches']}, {v['max_abs_err']:.2e}" for k, v in out.items()))
+
+
+# AudioSeal's recurrence (ops/lstm_recurrence.py) at the shape its serving
+# path runs: two LSTM layers of 512 over the 1,500 frames of a 30 s clip
+# (hop 320 at 16 kHz), batch 8, three LSTM calls per embed+detect (the
+# generator's encoder and decoder, the detector's encoder). LSTM_TOL is
+# tests/test_torch_audioseal.py's: the gap over the reference loop's peak,
+# which the loop with TF32 products fails.
+LSTM_H, LSTM_LAYERS, LSTM_BATCH, LSTM_FRAMES = 512, 2, 8, 1500
+LSTM_CALLS = {"embed_batch": 2, "detect_batch": 1}
+LSTM_TOL = 5e-7
+AUDIOSEAL_SECONDS = 30
+# (B, T, H, layers) of the kernel's check: the path's shape, eight batch
+# groups in a launch, a ragged group, one frame, three layers in one
+# launch, and H = 1024's plan of a launch per layer
+LSTM_SHAPES = [(LSTM_BATCH, LSTM_FRAMES, LSTM_H, LSTM_LAYERS), (64, 37, 512, 2),
+               (3, 37, 512, 2), (8, 1, 512, 2), (8, 37, 64, 3), (8, 37, 1024, 2)]
+
+
+def _reference_ops():
+    """The plain reference's products (portbench/reference/ops.py): f32 and
+    the TF32 control."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "pb_reference_ops", ROOT / "portbench" / "reference" / "ops.py")
+    ops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ops)
+    return ops.Ops(), ops.Ops(tf32=True)
+
+
+def lstm_params(torch, seed, h, layers):
+    """Seeded LSTM weights on the card under the reference's names ``l.*``,
+    PyTorch's default draws U(+-1/sqrt(H)); and the kernel's per-layer
+    ``(w_ih, w_hh, b_ih, b_hh)``."""
+    from tests import audioseal_reference as ra
+
+    g = torch.Generator().manual_seed(seed)
+    p = {k: ((torch.rand(s, generator=g) * 2 - 1) * h ** -0.5).cuda()
+         for k, s, *_ in ra._lstm_spec("l", h, layers)}
+    weights = [tuple(p[f"l.{n}_l{i}"] for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+               for i in range(layers)]
+    return p, weights
+
+
+def rel_gap(a, ref):
+    """Largest |a - ref| over ref's peak, in f64."""
+    return float((a.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def check_lstm_kernel(torch, report):
+    """Phase 3c: AudioSeal's recurrence kernel. Its build (ptxas's registers
+    and spills; any spill fails); at LSTM_SHAPES the kernel against the
+    reference's loop of f32 products (tests/audioseal_reference.py ``lstm``)
+    at LSTM_TOL, the launches read around each call; at the path's shape
+    the TF32 control fails LSTM_TOL and cuDNN's gap is printed; at a small
+    shape the kernel against its plain version, ``lstm_recurrence_ref``."""
+    from tests import audioseal_reference as ra
+    from waveverify_torch.ops import lstm_recurrence as lr
+
+    lib = lr.build()
+    ptxas = (lib.parent / f"{lib.stem}.log").read_text()
+    found = re.search(r"Compiling entry function '\w*lstm_recurrence_kernel\w*'.*?(\d+) bytes "
+                      r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                      r"Used (\d+) registers", ptxas, re.S)
+    if found is None:
+        raise AssertionError("ptxas log lists no lstm_recurrence_kernel")
+    stack, stores, loads, regs = (int(v) for v in found.groups())
+    report["lstm_ptxas"] = {"registers": regs, "spill_store_bytes": stores,
+                            "spill_load_bytes": loads, "stack_bytes": stack}
+    print(f"lstm build: {lib.name}, {regs} registers, spills {stores} / {loads} bytes")
+    if stores or loads:
+        raise AssertionError("ptxas spilled registers in lstm_recurrence_kernel")
+    f32, tf32 = _reference_ops()
+    dev = torch.device("cuda")
+    rows, launches = [], 0
+    for i, (b, t, h, layers) in enumerate(LSTM_SHAPES):
+        p, ws = lstm_params(torch, 200 + i, h, layers)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        x = torch.randn(b, h, t, device=dev, generator=gen)
+        seq = x.permute(2, 0, 1).contiguous()
+        plan = lr.device_plan(dev, h, layers)
+        expected = -(-b // plan.max_batch) * len(lr.launches(plan, layers))
+        with torch.no_grad():
+            want = ra.lstm(f32, p, "l", x, layers).permute(2, 0, 1)
+            before = lr.lstm_recurrence.launches
+            got = lr.lstm_recurrence(seq, ws) + seq
+            torch.cuda.synchronize()
+            n = lr.lstm_recurrence.launches - before
+        launches += n
+        gap = rel_gap(got, want)
+        row = {"B": b, "T": t, "H": h, "layers": layers, "plan": plan.kind,
+               "launches": n, "gap": gap, "max_abs_err": float((got - want).abs().max())}
+        if (b, t, h, layers) == LSTM_SHAPES[0]:
+            m = torch.nn.LSTM(h, h, layers).to(dev).eval()
+            m.load_state_dict({k[2:]: v for k, v in p.items()})
+            with torch.no_grad():
+                row["cudnn_gap"] = rel_gap(m(seq)[0] + seq, want)
+                row["tf32_control_gap"] = rel_gap(
+                    ra.lstm(tf32, p, "l", x, layers).permute(2, 0, 1), want)
+            if not row["tf32_control_gap"] > LSTM_TOL:
+                raise AssertionError(f"lstm: the TF32 control passes LSTM_TOL: {row}")
+        rows.append(row)
+        print(f"lstm B={b} T={t} H={h} layers={layers} ({plan.kind}, {n} launch(es)): gap "
+              f"{gap:.2e} over the loop's peak" + "".join(
+                  f", {k} {row[k]:.2e}" for k in ("cudnn_gap", "tf32_control_gap") if k in row))
+        if n != expected or not gap < LSTM_TOL:
+            raise AssertionError(f"lstm: {row} (launches expected {expected}, "
+                                 f"LSTM_TOL {LSTM_TOL})")
+    # the kernel against its plain version, which sums in the kernel's order
+    p, ws = lstm_params(torch, 300, 64, 2)
+    gen = torch.Generator(device=dev).manual_seed(300)
+    seq = torch.randn(37, 3, 64, device=dev, generator=gen)
+    with torch.no_grad():
+        got, plain = lr.lstm_recurrence(seq, ws), lr.lstm_recurrence_ref(seq, ws)
+    plain_gap = rel_gap(got, plain)
+    report["lstm_kernel_check"] = {"shapes": rows, "plain_version_gap": plain_gap,
+                                   "launches": launches + 1}
+    print(f"lstm kernel vs its plain version (B=3 T=37 H=64): gap {plain_gap:.2e}")
+    if not plain_gap < LSTM_TOL:
+        raise AssertionError(f"lstm: kernel vs plain version gap {plain_gap}")
+
+
+def check_audioseal(torch, report):
+    """Path e: AudioSeal served through ``WaveVerify.embed_batch`` /
+    ``detect_batch`` at the path's shape (random init, 8 x 30 s), the
+    recurrence kernel's launches set to 0 before each call and read after
+    it: two per ``embed_batch``, one per ``detect_batch``. Returns the
+    launches."""
+    import numpy as np
+
+    from waveverify_torch import WaveVerify
+    from waveverify_torch.config import AudioSealConfig
+    from waveverify_torch.ops import lstm_recurrence as lr
+
+    wv = WaveVerify(None, config=AudioSealConfig(), device="cuda", seed=0)
+    rng = np.random.RandomState(0)
+    audio = (rng.randn(LSTM_BATCH, AUDIOSEAL_SECONDS * CLIP) * 0.1).astype(np.float32)
+    bits = rng.randint(0, 2, (LSTM_BATCH, 16)).astype(np.float32)
+    total = 0
+    for _ in range(2):  # a first call, then a warm one
+        lr.lstm_recurrence.launches = 0
+        wm = wv.embed_batch(audio, bits)
+        n_embed = lr.lstm_recurrence.launches
+        lr.lstm_recurrence.launches = 0
+        _, score = wv.detect_batch(wm)
+        n = {"embed_batch": n_embed, "detect_batch": lr.lstm_recurrence.launches}
+        total += sum(n.values())
+        if n != LSTM_CALLS:
+            raise AssertionError(f"audioseal: launches {n} != {LSTM_CALLS}")
+        if not (np.isfinite(wm).all() and np.isfinite(score).all()):
+            raise AssertionError("audioseal: non-finite output")
+    report["audioseal"] = {"launches_per_call": n, "launches": total}
+    print(f"audioseal {LSTM_BATCH} x {AUDIOSEAL_SECONDS} s: recurrence kernel launches per "
+          f"call {n}; total {total}")
+    return total
+
+
+def time_lstm(torch, report, card):
+    """Phase 5's recurrence line at the path's shape, per embed+detect
+    (LSTM_CALLS calls), CUDA events: the wrapper's call (the first layer's
+    input GEMM and the launch), the reference's loop of f32 products (the
+    plain version sums in the kernel's order in Python, far too slowly to
+    time here), cuDNN's ``nn.LSTM`` on the same weights (``library_ms``),
+    and the bound: the two products a frame and layer, weights, input and
+    output once (portbench/counts_audioseal.py ``lstm_cost``) at the f32
+    FMA peak, the kernel's arithmetic, and at the TF32 peak, the yardstick
+    of the benchmark's ``lstm_roofline``. Returns the kernels line's entry."""
+    sys.path.append(str(ROOT / "portbench"))
+    from counts_audioseal import lstm_cost
+    from tests import audioseal_reference as ra
+    from waveverify_torch.ops import lstm_recurrence as lr
+
+    calls = sum(LSTM_CALLS.values())
+    h, layers, b, t = LSTM_H, LSTM_LAYERS, LSTM_BATCH, LSTM_FRAMES
+    p, ws = lstm_params(torch, 400, h, layers)
+    seq = torch.randn(t, b, h, device="cuda")
+    m = torch.nn.LSTM(h, h, layers).cuda().eval()
+    m.load_state_dict({k[2:]: v for k, v in p.items()})
+    f32, _ = _reference_ops()
+    x = seq.permute(1, 2, 0)
+    with torch.no_grad():
+        ms = cuda_time(torch, lambda: lr.lstm_recurrence(seq, ws), 10)
+        library_ms = cuda_time(torch, lambda: m(seq), 5)
+        plain_ms = cuda_time(torch, lambda: ra.lstm(f32, p, "l", x, layers), 1, warmup=1)
+    flops, nbytes = (calls * layers * v for v in lstm_cost(b, t, h, h))
+    t_bytes = nbytes / PEAK_BYTES
+    bound = max(flops / PEAK_F32_FLOPS, t_bytes)
+    tf32_bound = max(flops / PEAK_TF32_FLOPS, t_bytes)
+    bound_by = "operations" if flops / PEAK_F32_FLOPS >= t_bytes else "bytes"
+    if ms * calls < bound * 1e3:
+        raise AssertionError(f"lstm: {ms * calls} ms under its bound {bound * 1e3} ms")
+    entry = {"name": "lstm_recurrence", "route": "cuda",
+             "source": "waveverify_torch/csrc/lstm_recurrence.cu", "replaces": None,
+             "launches": report["lstm_kernel_check"]["launches"]
+             + report.get("audioseal", {}).get("launches", 0),
+             "max_abs_err": max(r["max_abs_err"] for r in report["lstm_kernel_check"]["shapes"]),
+             "ms": ms * calls, "plain_ms": plain_ms * calls, "bound_ms": bound * 1e3,
+             "bound_by": bound_by, "library_ms": library_ms * calls}
+    report["lstm_times"] = {"ms_per_lstm_call": ms, "library_ms_per_lstm_call": library_ms,
+                            "tf32_bound_ms": tf32_bound * 1e3, **entry}
+    print(f"lstm per embed+detect ({calls} calls of B={b} T={t} H={h} x {layers} layers): "
+          f"kernel {ms * calls:.3f} ms, cuDNN nn.LSTM {library_ms * calls:.3f} ms, the "
+          f"reference loop {plain_ms * calls:.1f} ms; bound {bound * 1e3:.3f} ms at the f32 FMA "
+          f"peak ({bound_by}, {bound * 1e3 / (ms * calls):.3f} of it reached), "
+          f"{tf32_bound * 1e3:.3f} ms at the TF32 peak [{card}]")
+    return entry
 
 
 def same_decisions(p, ref, margin):
@@ -3629,6 +3846,7 @@ def main() -> int:
     check_build(rc, report)
     strict_f32()
     check_kernel(torch, rc, report)
+    check_lstm_kernel(torch, report)
     if "--kernel-only" in sys.argv[1:]:
         return 0
     if "--kernel-times" in sys.argv[1:]:
@@ -3705,6 +3923,8 @@ def main() -> int:
     print(f"launches by path: {path_launches}")
     if not all(path_launches.values()):
         raise AssertionError("a path launched no kernel")
+    # 4e: AudioSeal, the recurrence kernel's path
+    check_audioseal(torch, report)
 
     # 5. times
     report["clips_per_s"] = {}
@@ -3774,6 +3994,7 @@ def main() -> int:
               f"({host / wall:.3f}) [{card}]")
 
     tot, bound, bound_by, fma_bound = time_chains(torch, rc, report, card)
+    lstm_entry = time_lstm(torch, report, card)
     # 6. training: the chain's gradients under checkpoint, one step on the
     # card against the CPU, the CLI's run (its checkpoint kept for phase 8),
     # times
@@ -3910,7 +4131,7 @@ def main() -> int:
         "bound_ms": bound * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}
+    }, lstm_entry]}
     report["kernels"] = kernels
     report["fma_bound_ms"] = fma_bound * 1e3
     report["products_matmul_ms"] = {"f32": tot["matmul_f32_ms"],

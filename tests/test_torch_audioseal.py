@@ -41,6 +41,8 @@ from waveverify_torch.models.audioseal import (
     init_audioseal,
 )
 from waveverify_torch.modules.audiocraft import StreamableLSTM
+from waveverify_torch.ops.lstm_recurrence import SPAN as LSTM_SPAN
+from waveverify_torch.ops.lstm_recurrence import lstm_recurrence
 
 torch.set_num_threads(2)
 
@@ -413,56 +415,60 @@ def _card():
 
 
 @pytest.mark.cuda
-def test_lstm_graphs_on_the_card():
-    """A shape's first call runs cuDNN's LSTM as it is; from the second on
-    a CUDA graph of the same call is replayed, with the same output; the
-    module captures the first ``GRAPHS`` shapes that recur, keeps them
-    while later shapes run as they are, and forgets them when it moves."""
+def test_lstm_kernel_route_on_the_card():
+    """Without autograd each call is one launch of the kernel inside a
+    ``lstm.persistent`` span under ``seanet.lstm``, at any length, with
+    cuDNN's output; under autograd, and where no plan fits, cuDNN runs. The
+    module keeps no state of the card: it moves to the CPU as it is."""
     dev = _card()
     m = StreamableLSTM(64).to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(4, 64, 300, generator=g, device=dev)
+    for t in (300, 299, 10, 1):
+        seq = x[..., :t].permute(2, 0, 1)
+        before = lstm_recurrence.launches
+        with torch.no_grad():
+            got = m(x[..., :t])
+            want = (m.lstm(seq)[0] + seq).permute(1, 2, 0)
+        assert lstm_recurrence.launches - before == 1
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    spans.drain()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        m(x)
+    records, _ = spans.drain()
+    by_id = {r["id"]: r for r in records}
+    inner = [r for r in records if r["name"] == LSTM_SPAN]
+    assert len(inner) == 1 and by_id[inner[0]["parent"]]["name"] == "seanet.lstm"
+    before = lstm_recurrence.launches
+    assert m(x).requires_grad  # autograd: cuDNN
+    wide = StreamableLSTM(2048, num_layers=1).to(dev).eval()
     with torch.no_grad():
-        eager = m(x)
-        assert not m._graphs
-        graphed, again = m(x), m(2 * x)
-        assert len(m._graphs) == 1
-        want = m.lstm((2 * x).permute(2, 0, 1))[0] + (2 * x).permute(2, 0, 1)
-        for t in range(m.GRAPHS + 1):
-            for _ in range(2):
-                m(x[..., :10 + t])
-        held = set(m._graphs)
-        late = x[..., :10 + m.GRAPHS]
-        over = m(late)
-        over_want = m.lstm(late.permute(2, 0, 1))[0] + late.permute(2, 0, 1)
-    peak = float(eager.abs().max())
-    assert float((graphed - eager).abs().max()) <= 1e-6 * peak
-    assert float((again - want.permute(1, 2, 0)).abs().max()) <= 1e-6 * peak
-    assert float((over - over_want.permute(1, 2, 0)).abs().max()) <= 1e-6 * peak
-    assert len(m._graphs) == m.GRAPHS and set(m._graphs) == held
-    assert ((300, 4, 64), x.device) in m._graphs
+        wide(torch.randn(1, 2048, 3, device=dev))  # no plan: cuDNN
+    assert lstm_recurrence.launches == before
     m.cpu()
-    assert not m._graphs and not m._seen
+    with torch.no_grad():
+        assert m(x[..., :5].cpu()).shape == (4, 64, 5)
 
 
 @pytest.mark.cuda
 def test_waveverify_serves_audioseal_on_the_card(tmp_path):
     """``embed_batch`` / ``detect_batch`` / ``locate_array`` on the card
-    against the reference, with the tolerances above, on calls that replay
-    the LSTMs' graphs."""
+    against the reference, with the tolerances above; each of a call's
+    three LSTMs is one launch of the persistent recurrence kernel."""
     dev = _card()
     sd_g, sd_d = state_dicts(1)
     wv = WaveVerify(save_pair(tmp_path, sd_g, sd_d), config=CFG, device="cuda")
     audio, bits = clips(1, 4001)
     for _ in range(3):
+        before = lstm_recurrence.launches
         wm = wv.embed_batch(audio, bits)
         got_bits, _ = wv.detect_batch(wm)
+        assert lstm_recurrence.launches - before == 3
     res = ra.watermark(F32, sd_g, REF, torch.from_numpy(audio), torch.from_numpy(bits))
     assert rel_gap(wm - audio, res) < RES_TOL
     presence, msg = ra.detect(F32, sd_d, REF, torch.from_numpy(wm))
     probs, _ = wv._detect_on(wv.models, dev, wm, wm.shape[-1])
     assert gap(probs.cpu(), msg) < PROB_TOL
-    lstms = [m for m in wv.models.modules() if isinstance(m, StreamableLSTM)]
-    assert len(lstms) == 3 and all(len(m._graphs) == 1 for m in lstms)
+    assert len([m for m in wv.models.modules() if isinstance(m, StreamableLSTM)]) == 3
     for row in range(2):
         assert gap(wv.locate_array(wm[row]), presence[row]) < PROB_TOL

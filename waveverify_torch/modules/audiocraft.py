@@ -11,14 +11,14 @@ modules by renaming its conv leaves alone (``waveverify_torch.convert``).
 The residual block is audiocraft's dense one (activation, a k-tap conv
 from C to C / ``compress``, activation, a 1x1 conv back to C, plus an
 identity or 1x1 shortcut), unlike ``modules/seanet.py``'s pointwise-then-
-depthwise block. The LSTM bottleneck is ``torch.nn.LSTM`` (cuDNN on a
-card, replayed as a CUDA graph) with audiocraft's skip; it runs in float32
-whatever the serving dtype, inside the span ``seanet.lstm``.
+depthwise block. The LSTM bottleneck holds a ``torch.nn.LSTM`` with
+audiocraft's skip; on a card it runs as the persistent recurrence kernel
+(``ops/lstm_recurrence.py``). It runs in float32 whatever the serving
+dtype, inside the span ``seanet.lstm``.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -27,6 +27,7 @@ from torch import nn
 from waveverify_torch import spans
 from waveverify_torch.modules.conv import SConv1d, SConvTranspose1d
 from waveverify_torch.modules.seanet import get_activation
+from waveverify_torch.ops.lstm_recurrence import device_plan, lstm_recurrence
 
 NORMS = ("none", "weight_norm")
 
@@ -47,71 +48,32 @@ class StreamableLSTM(nn.Module):
     """``num_layers`` LSTM layers of width ``dimension`` over the time axis,
     plus the input when ``skip`` (audiocraft's ``StreamableLSTM``).
 
-    cuDNN launches two kernels a frame and layer, about 6,000 for 1,500
-    frames, more than the host can enqueue in the time the card takes to
-    run them. So on a card, without autograd, a sequence shape seen before
-    runs as a CUDA graph of the same cuDNN call, replayed in one launch; a
-    shape's first call runs as it is. This pays where exact input lengths
-    repeat. A module captures the first :data:`GRAPHS` shapes that recur,
-    keeps them until it moves, and runs every other shape as it is, so no
-    length evicts another's graph to capture its own again."""
-
-    GRAPHS = 4
+    On a card without autograd every frame of every layer runs in one
+    launch of the persistent recurrence kernel (``lstm.persistent``), where
+    :func:`~waveverify_torch.ops.lstm_recurrence.device_plan` finds a plan
+    for the width and depth; cuDNN's LSTM runs where none fits, under
+    autograd and on the CPU."""
 
     def __init__(self, dimension: int, num_layers: int = 2, skip: bool = True):
         super().__init__()
         self.skip = skip
         self.lstm = nn.LSTM(dimension, dimension, num_layers)
-        self._graphs: dict = {}  # key -> (graph, input, output)
-        self._seen: OrderedDict = OrderedDict()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with spans.span("seanet.lstm", device=True):
             seq = x.permute(2, 0, 1).float()  # [T, B, C]
             y = self._recur(seq)
-            y = y + seq if self.skip else y.clone()
+            y = y + seq if self.skip else y
             return y.permute(1, 2, 0).to(x.dtype)
 
     def _recur(self, seq: torch.Tensor) -> torch.Tensor:
-        """The LSTM's output ``[T, B, C]``; a graph's is its static buffer,
-        valid until the next replay."""
-        if not seq.is_cuda or torch.is_grad_enabled():
-            return self.lstm(seq)[0]
-        key = (tuple(seq.shape), seq.device)
-        entry = self._graphs.get(key)
-        if entry is None:
-            if key not in self._seen or len(self._graphs) >= self.GRAPHS:
-                self._seen[key] = None
-                while len(self._seen) > 16 * self.GRAPHS:
-                    self._seen.popitem(last=False)
-                return self.lstm(seq)[0]
-            entry = self._graphs[key] = self._capture(seq)
-        graph, static_in, static_out = entry
-        static_in.copy_(seq)
-        graph.replay()
-        return static_out
-
-    def _capture(self, seq: torch.Tensor):
-        static_in = seq.clone()
-        side = torch.cuda.Stream(seq.device)
-        side.wait_stream(torch.cuda.current_stream(seq.device))
-        with torch.cuda.stream(side):
-            self.lstm(static_in)  # warm-up off the capture, as capture asks
-        torch.cuda.current_stream(seq.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = self.lstm(static_in)[0]
-        return graph, static_in, static_out
-
-    def _apply(self, fn, *args, **kwargs):
-        self._graphs.clear()
-        self._seen.clear()
-        return super()._apply(fn, *args, **kwargs)
-
-    def __getstate__(self):
-        state = dict(super().__getstate__())
-        state["_graphs"], state["_seen"] = {}, OrderedDict()
-        return state
+        """The LSTM's output ``[T, B, C]``."""
+        if seq.is_cuda and not torch.is_grad_enabled():
+            lstm = self.lstm
+            plan = device_plan(seq.device, lstm.hidden_size, lstm.num_layers)
+            if plan is not None:
+                return lstm_recurrence(seq, lstm.all_weights, plan)
+        return self.lstm(seq)[0]
 
 
 class SEANetResnetBlock(nn.Module):

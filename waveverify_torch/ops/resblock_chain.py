@@ -60,14 +60,13 @@ in this checkout, into ``build/kernels/`` beside the package.
 
 from __future__ import annotations
 
-import hashlib
-import os
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from waveverify_torch import spans
+from waveverify_torch.ops import nvcc
 
 MAX_CHANNELS = 768
 KERNEL_SIZES = (3, 5)
@@ -108,7 +107,6 @@ _BAR_BYTES = 2 * _MAX_STAGES * 8
 _MIN_STAGES = 2
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "resblock_chain.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 
 # --------------------------------------------------------------------------
@@ -360,44 +358,10 @@ def chain_plan(c: int, m: int, k: int, route: Optional[Route] = None) -> List[Tu
 _LIB = None
 
 
-def _nvcc() -> str:
-    import shutil
-
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the resblock-chain kernel cannot be built")
-    return path
-
-
 def build() -> Path:
-    """Compile the kernel library for sm_90a if this source has not been
-    built yet. The file name carries a hash of the source; a file lock
-    keeps concurrent processes from building the same library twice, and
-    the result is moved into place atomically; nvcc's and ptxas's output
-    goes to ``<library>.log`` beside it. Returns the library path."""
-    import fcntl
-    import subprocess
-
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libresblock_chain_{tag}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(_BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if lib.exists():
-            return lib
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (_BUILD_DIR / f"{lib.stem}.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    return lib
+    """The kernel library, compiled for sm_90a on first use
+    (:func:`waveverify_torch.ops.nvcc.build`). Returns its path."""
+    return nvcc.build(_SOURCE)
 
 
 def _library():
