@@ -42,12 +42,12 @@ Phases, each fatal on failure:
      batch 64, the host time to submit one call, the device's busy share,
      the long-audio path's seconds and real-time factor, the sweep's wall
      seconds with its host share, and per chain shape the route, the
-     kernel, the other route where it can run the width, the plain
-     version, the bound and the share of it reached, the product's rows
-     per pass, ring stages, shared memory, registers and CTAs per SM, and
-     the chain's C x C products alone through torch.matmul; the
-     recurrence kernel per AudioSeal embed+detect against cuDNN's nn.LSTM
-     (library_ms), the reference's loop and its bound;
+     kernel, the plain version, the bound and the share of it reached,
+     the product's rows per pass, ring stages, shared memory, registers
+     and CTAs per SM, and the chain's C x C products alone through
+     torch.matmul; the recurrence kernel per AudioSeal embed+detect
+     against cuDNN's nn.LSTM (library_ms), the reference's loop and its
+     bound;
   6. training at TrainConfig() (conf/base.yml, full width), f32 with TF32
      off: at each of its 10 chain shapes, the kernel's autograd Function
      inside torch.utils.checkpoint against the plain version's gradients
@@ -135,7 +135,7 @@ Phases, each fatal on failure:
 
 With --kernel-only the run stops after phase 3 and prints no result line;
 with --kernel-times it runs phase 5's chain table after phase 3 and stops
-there (both routes per width, bf16, the plans; about 90 s on an H100).
+there (about 90 s on an H100).
 With --ab-times TREE it only times the one-process paths of the port in
 TREE (see ab_times) and prints one JSON line.
 
@@ -356,15 +356,6 @@ def device_breakdown(torch, fn, iters=3):
     return busy_us / wall_us, [(k[:90], us / iters / 1e3) for k, us in top]
 
 
-def chain_cost(b, t, c, m, itemsize, k=5):
-    """(FLOP, bytes) one chain needs: the JAX cost formula's FLOP (two CxC
-    products and two depthwise convs per block, no halo recompute), each
-    input read once and the output written once."""
-    flops = m * 2 * b * t * c * (2 * c + 2 * k)
-    nbytes = itemsize * (2 * b * t * c + m * (2 * c * c + 2 * k * c + 2 * c))
-    return flops, nbytes
-
-
 def _sass_functions(lib):
     """{function name: its SASS} of the built library (cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -412,7 +403,8 @@ def check_build(rc, report):
     report["ptxas_wgmma_advisories"] = advisories
     print(f"ptxas: {len(kernels_built)} kernels, spills (function, bytes stored, "
           f"loaded): {spilled or 'none'}; wgmma advisories: {advisories or 'none'}")
-    expected = 2 * (len(rc._TILINGS) + len(rc._WG_TILINGS)) * len(rc.KERNEL_SIZES)
+    wg_tilings = len(set(rc._WGMMA_WIDTHS.values()))
+    expected = 2 * (len(rc._TILINGS) + wg_tilings) * len(rc.KERNEL_SIZES)
     if len(kernels_built) != expected:
         raise AssertionError(f"ptxas log lists {len(kernels_built)} instantiations, "
                              f"not {expected}")
@@ -501,30 +493,15 @@ def check_kernel(torch, rc, report):
     check_routes(torch, rc, report)
 
 
-def other_route(rc, c):
-    """The route width c does not take, where it can run c: mma.sync at a
-    wgmma width; at an mma.sync width, a compiled wgmma tiling of the same
-    CTAs per SM whose column blocks divide c and fit one sweep."""
-    kind, tiling = rc.product_route(c)
-    if kind == "wgmma":
-        return "mma", rc.product_tiling(c)
-    for nb, units, ctas in rc._WG_TILINGS:
-        if ctas == tiling[2] and c % nb == 0 and (2 * units) % (c // nb) == 0:
-            return "wgmma", (nb, units, ctas)
-    return None
-
-
-# two plans of one chain closer than this are one plan within the card's
-# run-to-run spread (1-2% between calls at these shapes)
-PLAN_NOISE = 0.02
-
-
 def time_chains(torch, rc, report, card):
     """Phase 5's chain table: per chain shape of embed+detect and locate at
     batch 64, f32, the route, rows per pass, ring stages, the kernel's ms,
-    the other route's ms where it can run the width, the plain version's,
-    the bound, and the C x C products alone by torch.matmul. Returns the
-    embed+detect sums and the bound of the kernels JSON line."""
+    the plain version's, the bound (portbench/counts.py ``chain_cost``), and
+    the C x C products alone by torch.matmul. Returns the embed+detect sums
+    and the bound of the kernels JSON line."""
+    sys.path.append(str(ROOT / "portbench"))
+    from counts import chain_cost
+
     def bounds(flops, nbytes):
         """(FMA bound, bound, bound_by) in seconds: the f32 FMA rate the first
         kernel was held to, and the split-TF32 tensor-core rate it runs at now."""
@@ -544,7 +521,7 @@ def time_chains(torch, rc, report, card):
 
     rows = []
     tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0,
-           "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0, "other_ms": 0.0}
+           "matmul_f32_ms": 0.0, "matmul_tf32_ms": 0.0}
     unique = list(dict.fromkeys(CHAINS))
     loc_tot = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
     # embed+detect's shapes, then the locator's (not in the embed+detect sums)
@@ -557,18 +534,6 @@ def time_chains(torch, rc, report, card):
         err = check_close(torch, run_k(), run_p(), f"batch-64 chain T={t} C={c}")
         ms_k = cuda_time(torch, run_k, 5)
         ms_p = cuda_time(torch, run_p, 3)
-        other = other_route(rc, c)
-        ms_o = None
-        bf16_ms = None
-        if other is not None:
-            run_o = lambda: rc._run(x, ws, ps, RES_SCALE, 1.0, route=other)
-            check_close(torch, run_o(), run_p(), f"batch-64 chain T={t} C={c} {other[0]}")
-            ms_o = cuda_time(torch, run_o, 5)
-            # both routes in bf16 too, where bf16 serving takes the same table
-            xb, wb, _ = chain_inputs(torch, BATCH, t, c, m, 100 + i, torch.bfloat16)
-            bf16_ms = {kind: cuda_time(torch, lambda: rc._run(xb, wb, ps, RES_SCALE, 1.0,
-                                                               route=route), 5)
-                       for kind, route in ((rc.product_route(c)[0], None), (other[0], other))}
         mm_f32 = products_matmul_ms(x, ws, m, False)
         mm_tf32 = products_matmul_ms(x, ws, m, True)
         flops, nbytes = chain_cost(BATCH, t, c, m, 4)
@@ -580,18 +545,6 @@ def time_chains(torch, rc, report, card):
         slab_rows = plan[0][0] * 8 + min(plan[0][1], t)
         regs, ctas, smem = rc.kernel_info(c, slab_rows)
         kind, tiling = rc.product_route(c)
-        # the other plan of the cost model (one launch for the chain or one
-        # per block), timed on the same route: what refits _FLOP_PER_BYTE
-        threshold = rc.plan_threshold(c, m, 5)
-        plan_ms = None
-        if threshold is not None:
-            whole = [(m, rc._launch_tile(c, m, 5))]
-            per_block = [(1, rc._launch_tile(c, 1, 5))] * m
-            alt = per_block if plan == whole else whole
-            ms_alt = cuda_time(torch, lambda: rc._run(x, ws, ps, RES_SCALE, 1.0, plan=alt), 5)
-            plan_ms = {"chain": ms_k if plan == whole else ms_alt,
-                       "per_block": ms_k if plan != whole else ms_alt,
-                       "threshold": threshold}
         row = {"path": path, "T": t, "C": c, "M": m, "per_call": count or 1,
                "launches": len(plan), "plan": plan, "route": kind,
                "ms": ms_k, "plain_ms": ms_p, "bound_us": bound * 1e6,
@@ -601,8 +554,6 @@ def time_chains(torch, rc, report, card):
                "rows_per_pass": rc.rows_per_pass(c), "slab_rows": slab_rows,
                "ring_stages": rc.ring_stages(c, slab_rows), "smem_per_cta": smem,
                "registers": regs, "ctas_per_sm": ctas,
-               "other_route": None if other is None else [other[0], list(other[1][:2])],
-               "other_route_ms": ms_o, "bf16_ms_by_route": bf16_ms, "plans_ms": plan_ms,
                "products_matmul_ms": {"f32": mm_f32, "tf32": mm_tf32}}
         rows.append(row)
         if not count:
@@ -616,13 +567,9 @@ def time_chains(torch, rc, report, card):
         tot["bytes"] += count * nbytes
         tot["matmul_f32_ms"] += count * mm_f32
         tot["matmul_tf32_ms"] += count * mm_tf32
-        tot["other_ms"] += count * (ms_k if ms_o is None else ms_o)
         tot["err"] = max(tot["err"], err)
-        other_txt = ("no other route fits" if other is None else
-                     f"{other[0]} {other[1][0]}x{other[1][1]} {ms_o:.3f} ms; bf16 "
-                     + ", ".join(f"{k} {v:.3f}" for k, v in bf16_ms.items()) + " ms")
         print(f"chain ({path}) T={t} C={c} M={m} x{count or 1}: {kind} "
-              f"{tiling[0]}x{tiling[1]}, kernel {ms_k:.3f} ms ({other_txt}), plain "
+              f"{tiling[0]}x{tiling[1]}, kernel {ms_k:.3f} ms, plain "
               f"{ms_p:.3f} ms, bound {bound * 1e6:.1f} us ({bound_by}, "
               f"{bound * 1e3 / ms_k:.3f} of it reached; f32 FMA bound "
               f"{fma_bound * 1e6:.1f} us), {len(plan)} launch(es) {plan}; "
@@ -631,23 +578,6 @@ def time_chains(torch, rc, report, card):
               f"CTA/SM; products_matmul_ms {mm_f32:.3f} f32, {mm_tf32:.3f} TF32 [{card}]",
               flush=True)
     report["chains_f32_batch64"] = rows
-    # _FLOP_PER_BYTE picks the faster plan at a shape when it lies on the
-    # faster plan's side of that shape's break-even; a shape whose two plans
-    # are within PLAN_NOISE of each other constrains nothing
-    lo, hi = 0.0, float("inf")
-    for row in rows:
-        pm = row["plans_ms"]
-        if pm is not None and abs(pm["chain"] / pm["per_block"] - 1) > PLAN_NOISE:
-            if pm["chain"] < pm["per_block"]:
-                lo = max(lo, pm["threshold"])
-            else:
-                hi = min(hi, pm["threshold"])
-    report["flop_per_byte_fit"] = [lo, hi]
-    print("plans (chain / per block ms, break-even FLOP per byte): " + "; ".join(
-        f"C={r['C']} M={r['M']} {r['plans_ms']['chain']:.3f} / {r['plans_ms']['per_block']:.3f}, "
-        f"{r['plans_ms']['threshold']:.1f}" for r in rows if r["plans_ms"])
-          + f"; values in [{lo:.1f}, {hi:.1f}) pick the plan faster by more than "
-          f"{PLAN_NOISE:.0%} at every shape (_FLOP_PER_BYTE {rc._FLOP_PER_BYTE}) [{card}]")
     print("library_ms: none (no single PyTorch call computes a resblock chain); "
           f"products_matmul_ms per embed+detect, informational: f32 "
           f"{tot['matmul_f32_ms']:.3f}, TF32 allowed {tot['matmul_tf32_ms']:.3f}")
@@ -660,9 +590,8 @@ def time_chains(torch, rc, report, card):
           f"{loc_tot['plain_ms']:.3f} ms, bound {loc_bound[1] * 1e3:.3f} ms "
           f"({loc_bound[2]}) [{card}]")
     fma_bound, bound, bound_by = bounds(tot["flops"], tot["bytes"])
-    report["chain_ms_per_embed_detect"] = {"routed": tot["ms"], "other_routes": tot["other_ms"]}
-    print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms (each width on its other "
-          f"route where one fits: {tot['other_ms']:.3f} ms); bound {bound * 1e3:.3f} ms "
+    report["chain_ms_per_embed_detect"] = tot["ms"]
+    print(f"chain kernel per embed+detect: {tot['ms']:.3f} ms; bound {bound * 1e3:.3f} ms "
           f"({TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), "
           f"{bound / tot['ms'] * 1e3:.3f} of it reached; f32 FMA bound "
           f"{fma_bound * 1e3:.3f} ms [{card}]")
@@ -740,10 +669,10 @@ LSTM_CALLS = {"embed_batch": 2, "detect_batch": 1}
 LSTM_TOL = 5e-7
 AUDIOSEAL_SECONDS = 30
 # (B, T, H, layers) of the kernel's check: the path's shape, eight batch
-# groups in a launch, a ragged group, one frame, three layers in one
-# launch, and H = 1024's plan of a launch per layer
+# groups in a launch, a ragged group, one frame, and three layers in one
+# launch
 LSTM_SHAPES = [(LSTM_BATCH, LSTM_FRAMES, LSTM_H, LSTM_LAYERS), (64, 37, 512, 2),
-               (3, 37, 512, 2), (8, 1, 512, 2), (8, 37, 64, 3), (8, 37, 1024, 2)]
+               (3, 37, 512, 2), (8, 1, 512, 2), (8, 37, 64, 3)]
 
 
 def _reference_ops():
@@ -809,7 +738,7 @@ def check_lstm_kernel(torch, report):
         x = torch.randn(b, h, t, device=dev, generator=gen)
         seq = x.permute(2, 0, 1).contiguous()
         plan = lr.device_plan(dev, h, layers)
-        expected = -(-b // plan.max_batch) * len(lr.launches(plan, layers))
+        expected = -(-b // plan.max_batch)
         with torch.no_grad():
             want = ra.lstm(f32, p, "l", x, layers).permute(2, 0, 1)
             before = lr.lstm_recurrence.launches
@@ -818,7 +747,7 @@ def check_lstm_kernel(torch, report):
             n = lr.lstm_recurrence.launches - before
         launches += n
         gap = rel_gap(got, want)
-        row = {"B": b, "T": t, "H": h, "layers": layers, "plan": plan.kind,
+        row = {"B": b, "T": t, "H": h, "layers": layers, "units": list(plan.units),
                "launches": n, "gap": gap, "max_abs_err": float((got - want).abs().max())}
         if (b, t, h, layers) == LSTM_SHAPES[0]:
             m = torch.nn.LSTM(h, h, layers).to(dev).eval()
@@ -830,7 +759,7 @@ def check_lstm_kernel(torch, report):
             if not row["tf32_control_gap"] > LSTM_TOL:
                 raise AssertionError(f"lstm: the TF32 control passes LSTM_TOL: {row}")
         rows.append(row)
-        print(f"lstm B={b} T={t} H={h} layers={layers} ({plan.kind}, {n} launch(es)): gap "
+        print(f"lstm B={b} T={t} H={h} layers={layers} (units {plan.units}, {n} launch(es)): gap "
               f"{gap:.2e} over the loop's peak" + "".join(
                   f", {k} {row[k]:.2e}" for k in ("cudnn_gap", "tf32_control_gap") if k in row))
         if n != expected or not gap < LSTM_TOL:

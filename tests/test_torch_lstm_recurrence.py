@@ -54,19 +54,18 @@ def rel_gap(a, ref):
 # -- the plan --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("h,layers,kind,units,ctas,smem", [
-    (8, 2, "wavefront", (2, 1), (4, 8), 4928),
-    (512, 2, "wavefront", (12, 6), (43, 86), 150912),
-    (512, 3, "wavefront", (20, 10, 10), (26, 52, 52), 225152),
-    (1024, 2, "layered", (8,), (128,), 179456),
-    (1024, 1, "wavefront", (8,), (128,), 179456),
+@pytest.mark.parametrize("h,layers,units,ctas,smem", [
+    (8, 2, (2, 1), (4, 8), 4928),
+    (512, 2, (12, 6), (43, 86), 150912),
+    (512, 3, (20, 10, 10), (26, 52, 52), 225152),
+    (1024, 1, (8,), (128,), 179456),
 ])
-def test_plan_at_widths(h, layers, kind, units, ctas, smem):
+def test_plan_at_widths(h, layers, units, ctas, smem):
     """On an H100: the first layer's CTAs own twice the units of the layers
-    above (their input product is precomputed), every CTA one SM; two
-    layers of 1024 do not fit one launch together, one layer does."""
+    above (their input product is precomputed), every CTA one SM; one layer
+    of 1024 fits one launch (two do not: no plan)."""
     plan = lr.lstm_plan(h, layers)
-    assert (plan.kind, plan.units, plan.ctas, plan.smem) == (kind, units, ctas, smem)
+    assert (plan.units, plan.ctas, plan.smem) == (units, ctas, smem)
     assert sum(plan.ctas) <= lr.H100_SMS and plan.smem <= lr.H100_SMEM
     assert lr.smem_bytes(h, plan.units, plan.max_batch) <= lr.H100_SMEM
     assert lr.smem_bytes(h, plan.units, plan.max_batch + lr.BATCH_GROUP) > lr.H100_SMEM
@@ -74,9 +73,6 @@ def test_plan_at_widths(h, layers, kind, units, ctas, smem):
     for units_l, ctas_l in zip(plan.units, plan.ctas):
         cover = [u for u0, n in lr.unit_slices(h, units_l) for u in range(u0, u0 + n)]
         assert cover == list(range(h)) and len(lr.unit_slices(h, units_l)) == ctas_l
-    groups = lr.launches(plan, layers)
-    assert [layer for g in groups for layer in g] == list(range(layers))
-    assert len(groups) == (1 if kind == "wavefront" else layers)
 
 
 def test_plan_at_h512_splits_the_work_evenly():
@@ -103,6 +99,7 @@ def test_geometry_covers_h_with_whole_quads(h, units):
 @pytest.mark.parametrize("h,layers,sms,smem", [
     (2048, 2, 132, 232448),  # one layer's W_hh is 16 MiB: over the card's shared memory
     (2048, 1, 132, 232448),
+    (1024, 2, 132, 232448),  # two layers of 1024 do not fit one launch together
     (1024, 2, 132, 100 * 1024),  # a card with less shared memory per block
     (512, 2, 16, 232448),  # too few SMs for the units a CTA can hold
 ])
@@ -110,10 +107,9 @@ def test_no_plan_where_nothing_fits(h, layers, sms, smem):
     assert lr.lstm_plan(h, layers, sms, smem) is None
 
 
-def test_more_layers_than_one_launch_holds_run_layered():
-    plan = lr.lstm_plan(64, lr.MAX_LAYERS + 1)
-    assert plan.kind == "layered" and plan == dataclasses.replace(
-        lr.lstm_plan(64, 1), kind="layered")
+def test_more_layers_than_one_launch_holds_have_no_plan():
+    assert lr.lstm_plan(64, lr.MAX_LAYERS) is not None
+    assert lr.lstm_plan(64, lr.MAX_LAYERS + 1) is None
 
 
 def test_cpu_tensors_keep_nn_lstm(monkeypatch):
@@ -132,17 +128,6 @@ def test_cpu_tensors_keep_nn_lstm(monkeypatch):
 # -- the plain version -----------------------------------------------------------------
 
 
-def _small_plans(h, layers):
-    """The H100's plan, and for 2+ layers the layered plan of a card whose
-    shared memory holds one layer's CTA and not the wavefront's."""
-    plans = [lr.lstm_plan(h, layers)]
-    if layers > 1:
-        one = lr.smem_bytes(h, lr.lstm_plan(h, 1).units)
-        plans.append(lr.lstm_plan(h, layers, smem=one))
-        assert plans[-1].kind == "layered"
-    return plans
-
-
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("frames", [1, 37])
 @pytest.mark.parametrize("layers", [1, 2, 3])
@@ -157,9 +142,9 @@ def test_plain_version_against_the_loop(seed, frames, layers):
     x = torch.randn(3, h, frames, generator=g)
     want = ra.lstm(F32, p, "l", x, layers)
     seq = x.permute(2, 0, 1)
-    for plan in _small_plans(h, layers):
-        got = lr.lstm_recurrence(seq, as_weights(p, layers), plan) + seq
-        assert rel_gap(got.permute(1, 2, 0), want) < LSTM_TOL, plan
+    plan = lr.lstm_plan(h, layers)
+    got = lr.lstm_recurrence(seq, as_weights(p, layers), plan) + seq
+    assert rel_gap(got.permute(1, 2, 0), want) < LSTM_TOL, plan
     control = rel_gap(ra.lstm(TF32, p, "l", x, layers), want)
     assert control > (LSTM_TOL if frames > 1 or layers < 3 else 0.8 * LSTM_TOL)
 
@@ -211,12 +196,15 @@ def test_kernel_against_the_loop(h, frames, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,layers", [(1024, 2), (64, 3)])
 def test_kernel_layered_and_deeper(h, layers):
-    """H = 1024 runs a launch per layer; three layers of 64 one launch."""
+    """Two layers of 1024 have no plan (the module keeps cuDNN there,
+    ``test_torch_audioseal.py``); three layers of 64 run in one launch."""
     dev = _card()
+    plan = lr.device_plan(dev, h, layers)
+    if h == 1024:
+        assert plan is None
+        return
     p = lstm_params(h, h, layers, device=dev)
     x = torch.randn(8, h, 37, device=dev)
-    plan = lr.device_plan(dev, h, layers)
-    assert plan.kind == ("layered" if h == 1024 else "wavefront")
     seq = x.permute(2, 0, 1).contiguous()
     with torch.no_grad():
         got = lr.lstm_recurrence(seq, as_weights(p, layers), plan) + seq

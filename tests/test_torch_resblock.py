@@ -297,11 +297,10 @@ def test_tilings_match_the_kernel_source():
                    .replace("2 * kMaxStages * 8", str(2 * rc._MAX_STAGES * 8)))
 
     assert table("WV_TILINGS") == rc._TILINGS
-    # the route table names compiled wgmma tilings only; the wrappers the
-    # kernel has (wgmma_tf32_n<NB>) cover every column block width
-    assert table("WV_WG_TILINGS") == rc._WG_TILINGS
-    assert set(rc._WGMMA_WIDTHS.values()) <= set(rc._WG_TILINGS)
-    for nb, _, _ in rc._WG_TILINGS:
+    # the route table's tilings are the wgmma tilings compiled, and the
+    # wrappers the kernel has (wgmma_tf32_n<NB>) cover their column blocks
+    assert table("WV_WG_TILINGS") == tuple(rc._WGMMA_WIDTHS.values())
+    for nb, _, _ in rc._WGMMA_WIDTHS.values():
         assert f"void wgmma_tf32_n{nb}(" in src
     assert (const("kMaxStages"), const("kBarBytes"), const("kWgRows"), const("kSlabPad"),
             const("kMaxSmem")) == (rc._MAX_STAGES, rc._BAR_BYTES, rc._WG_ROWS,
@@ -457,14 +456,14 @@ def test_wgmma_image_splits_into_exact_tf32_hi_and_f32_rest():
     assert int(packed_b[:, :, :, 1].abs().max()) == 0
     assert torch.equal(rc.pack_wgmma_weights(pb, 64, split=False),
                        packed_b[:, :, :, :1])
-    route = ("wgmma", (64, 2, 2))
-    assert torch.equal(rc._packed(pb, bf16=True, route=route), packed_b[:, :, :, :1])
+    # the wrapper's copy at the route's width, C = 192, is that image
+    pb = torch.from_numpy(rng.randn(2, 192, 192).astype(np.float32)).bfloat16().float()
+    assert torch.equal(rc._packed(pb, bf16=True), rc.pack_wgmma_weights(pb, 96, split=False))
 
 
 def test_wgmma_routes_fit_their_tilings():
     assert rc._WGMMA_WIDTHS, "the route table sends no width to wgmma"
     for c, (nb, units, ctas) in rc._WGMMA_WIDTHS.items():
-        assert (nb, units, ctas) in rc._WG_TILINGS
         assert c % 16 == 0 and c % nb == 0 and nb % 8 == 0 and nb <= 256
         # every column block of a row tile in one sweep (the in-place rule)
         assert (2 * units) % (c // nb) == 0

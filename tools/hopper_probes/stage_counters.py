@@ -4,8 +4,8 @@
 
 Copies waveverify_torch/ into build/stage_counters/, adds clock64 counters
 to the chain kernel's wgmma route (per CTA in shared memory, one global add
-per CTA at its end), builds that copy, and runs the batch-64 f32 chains at
-C = 192 (the width's route) and C = 96 and 384 (wgmma named explicitly).
+per CTA at its end), builds that copy, and runs the batch-64 f32 chain at
+C = 192, the one width that route serves.
 Prints per stage, in SM cycles, averaged over the CTAs: warp 0's and warp
 4's wait for the stage's bulk copy, warp 0's time from the stage's data to
 the slot's release (its wgmma group, the wait for it, the next A loads),
@@ -55,15 +55,13 @@ struct ChainScalars {"""),
         ring.advance();""", """        if (lane == 0) ring.release(ring.slot, ring.index);
         if (threadIdx.x == 0) ring.dbg[1] += clock64() - tw1;
         ring.advance();"""),
-    ("""            o[ld + 8] = acc[j][4 * jn + 3];
-          }
+    ("""          o[ld + 8] = sum[j][4 * jn + 3];
         }
       }
     }
     __syncthreads();
   }
-}""", """            o[ld + 8] = acc[j][4 * jn + 3];
-          }
+}""", """          o[ld + 8] = sum[j][4 * jn + 3];
         }
       }
     }
@@ -82,11 +80,11 @@ struct ChainScalars {"""),
   if (threadIdx.x == 0) {
     for (int i = 0; i < stages; ++i) {
       mbar_init(ring.full + 8 * i, 1);"""),
-    ("""    pointwise_wgmma<NB, UNITS, kSplitB, MINB == 1>(u, Pu, C, ldu, ring);
+    ("""    pointwise_wgmma<NB, UNITS, kSplitB>(u, Pu, C, ldu, ring);
   };
   run_chain<T, K>(x, out, xs, xs + C * ld, dw1, b1, dw2, b2, C, T_len, M, t_tile, sc,
                   product);
-""", """    pointwise_wgmma<NB, UNITS, kSplitB, MINB == 1>(u, Pu, C, ldu, ring);
+""", """    pointwise_wgmma<NB, UNITS, kSplitB>(u, Pu, C, ldu, ring);
   };
   run_chain<T, K>(x, out, xs, xs + C * ld, dw1, b1, dw2, b2, C, T_len, M, t_tile, sc,
                   product);
@@ -133,23 +131,21 @@ def main():
     lib.wv_counters.argtypes = [ctypes.c_void_p]
     strict_f32()
     buf = (ctypes.c_ulonglong * 16)()
-    shapes = [(8000, 192, 3, None), (16000, 96, 3, ("wgmma", (96, 1, 2))),
-              (2000, 384, 3, ("wgmma", (96, 2, 1)))]
-    for t, c, m, route in shapes:
-        x, ws, ps = cs.chain_inputs(torch, cs.BATCH, t, c, m, 1, torch.float32)
-        run = lambda: rc._run(x, ws, ps, cs.RES_SCALE, 1.0, route=route)
-        run()
-        torch.cuda.synchronize()
-        lib.wv_counters(buf)
-        ms = cs.cuda_time(torch, run, 3, warmup=0)
-        lib.wv_counters(buf)
-        v = list(buf)
-        n, st = v[8], v[2]
-        print(f"T={t} C={c} M={m} wgmma: {ms:.3f} ms per chain with the counters; per "
-              f"stage (cycles): wait for the copy warp 0 {v[0] / st:.0f}, warp 4 "
-              f"{v[7] / st:.0f}; data to release {v[1] / st:.0f}; issue to seen "
-              f"{v[3] / st:.0f}; per CTA: {st / n:.0f} stages, products "
-              f"{v[4] / n:.0f} of {v[6] / n:.0f} cycles", flush=True)
+    t, c, m = 8000, 192, 3
+    x, ws, ps = cs.chain_inputs(torch, cs.BATCH, t, c, m, 1, torch.float32)
+    run = lambda: rc.resblock_chain(x, *ws, prescales=ps, res_scale=cs.RES_SCALE)
+    run()
+    torch.cuda.synchronize()
+    lib.wv_counters(buf)
+    ms = cs.cuda_time(torch, run, 3, warmup=0)
+    lib.wv_counters(buf)
+    v = list(buf)
+    n, st = v[8], v[2]
+    print(f"T={t} C={c} M={m} wgmma: {ms:.3f} ms per chain with the counters; per "
+          f"stage (cycles): wait for the copy warp 0 {v[0] / st:.0f}, warp 4 "
+          f"{v[7] / st:.0f}; data to release {v[1] / st:.0f}; issue to seen "
+          f"{v[3] / st:.0f}; per CTA: {st / n:.0f} stages, products "
+          f"{v[4] / n:.0f} of {v[6] / n:.0f} cycles", flush=True)
 
 
 if __name__ == "__main__":

@@ -122,15 +122,17 @@
 // core's rate, bounds the rest: the units' passes are interleaved and the
 // next k-chunk's A is loaded while they run.
 //
-// Why each width takes its route (chip_smoke.py phase 5 times both where a
-// compiled tiling fits; PERF.md): at C = 192 the slabs of 128 rows and two
-// 12 KB slots fill the CTA and wgmma is faster. At C = 384 two 24 KB slots
-// cost 16 of the 64 slab rows, at C = 128 two 8 KB slots 16 of 96 (two
-// CTAs per SM), and the emptier 64-row tiles and the extra recompute lose
-// to mma.sync; at C = 64 and 96 (two CTAs per SM, 4-6 KB copies) the feed
-// is slower per byte and mma.sync is as fast or faster. C = 32, 256, 512
-// and 768 have no compiled wgmma tiling (their column blocks do not fit
-// one sweep, or the sums do not fit the registers).
+// Why each width takes its route (both routes timed on an H100; PERF.md):
+// at C = 192 the slabs of 128 rows and two 12 KB slots fill the CTA and
+// wgmma is faster. At C = 384 two 24 KB slots cost 16 of the 64 slab rows,
+// at C = 128 two 8 KB slots 16 of 96 (two CTAs per SM), and the emptier
+// 64-row tiles and the extra recompute lose to mma.sync; at C = 64 and 96
+// (two CTAs per SM, 4-6 KB copies) the feed is slower per byte and
+// mma.sync is as fast or faster. Those widths were timed with tilings for
+// two CTAs per SM (64 x 2, 96 x 1) that are no longer compiled: 96 x 2,
+// for C = 192, is the one wgmma tiling built. At C = 32, 256, 512 and 768
+// no wgmma tiling fits (their column blocks do not fit one sweep, or the
+// sums do not fit the registers).
 //
 // Why the slab stays channel-major. wgmma's RS form takes A from registers,
 // so only B has to be K-major, and B is the weights, whose layout the
@@ -159,7 +161,7 @@
 // per SM (C > 128) flush every k-step, for 6% of the kernel's time; those
 // for two CTAs per SM (C <= 128, at most 16 k-steps) keep their sums in the
 // tensor core, as under their register cap the flush spills. The wgmma
-// tilings for one CTA per SM flush every four k-chunks: every k-chunk
+// tiling (one CTA per SM) flushes every four k-chunks: every k-chunk
 // (part registers and a wait per unit) made the route slower than mma.sync
 // at C = 192; never flushing read 9.1e-06 on phase 10's kernel_alpha
 // chains, near phase 3's limit of 1e-05; every four costs 0.2 ms per
@@ -195,10 +197,10 @@ constexpr uint32_t kSbo = 256;    // between core matrices 8 output channels apa
 
 // Product tilings compiled, ops/resblock_chain.py holds the same tables:
 // mma.sync X(NT, MT, CTAs per SM the register budget aims at) (_TILINGS);
-// wgmma X(NB, UNITS, CTAs per SM) (_WG_TILINGS): 96 x 2 serves C = 192, the
-// two-CTA tilings time the route at C = 64, 96, 128 (mma.sync is faster).
+// wgmma X(NB, UNITS, CTAs per SM) (the values of _WGMMA_WIDTHS): 96 x 2,
+// the one width the route serves, C = 192.
 #define WV_TILINGS(X) X(12, 2, 1) X(8, 3, 1) X(6, 4, 1) X(6, 2, 2) X(4, 3, 2)
-#define WV_WG_TILINGS(X) X(96, 2, 1) X(64, 2, 2) X(96, 1, 2)
+#define WV_WG_TILINGS(X) X(96, 2, 1)
 
 struct ChainScalars {
   float ps[kMaxM];
@@ -495,23 +497,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
 // d (+)= A B for a 64 x N tile: A (64 x 8, TF32) from registers, B (8 x N)
 // from shared memory by descriptor; scale_d = 0 ignores d's old value.
 // The operand form of CUTLASS's MMA_64xNx8_F32TF32TF32_RS_TN.
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48], const uint32_t (&a)[4],
                                                 uint64_t desc, int scale_d) {
   asm volatile(
@@ -535,9 +520,8 @@ __device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48], const uint32_t (&
 template <int NB>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[NB / 2], const uint32_t (&a)[4],
                                            uint64_t desc, int scale_d) {
-  static_assert(NB == 64 || NB == 96, "no wgmma wrapper for this NB");
-  if constexpr (NB == 64) wgmma_tf32_n64(d, a, desc, scale_d);
-  if constexpr (NB == 96) wgmma_tf32_n96(d, a, desc, scale_d);
+  static_assert(NB == 96, "no wgmma wrapper for this NB");
+  wgmma_tf32_n96(d, a, desc, scale_d);
 }
 
 // The ring of B stages: `stages` slots of `stage_bytes` (one k-chunk of 8
@@ -604,8 +588,8 @@ __device__ __forceinline__ int wg_sweep_tiles(int C) {
 // s[co][r] = sum_ci s[ci][r] * w[ci][co] for all P rows, in place, by split
 // TF32 wgmma. Warpgroup wg owns units q = wg + 2 j (j < UNITS) of a sweep:
 // column block q / tiles, row tile q % tiles, its 64 x NB sums in registers.
-// FLUSH: the tensor core carries them over kFlushChunks k-chunks, starting
-// from zero (scale-d = 0), and then they join running sums kept in f32
+// The tensor core carries them over kFlushChunks k-chunks, starting from
+// zero (scale-d = 0), and then they join running sums kept in f32
 // registers (see the header). For each
 // k-chunk ks of 8 input channels the ring holds B's stage: per column block
 // cb the K-major image of w[8 ks .. 8 ks + 8][NB cb .. NB cb + NB] in TF32
@@ -623,7 +607,7 @@ __device__ __forceinline__ int wg_sweep_tiles(int C) {
 // other of two register sets. No branch encloses a wgmma (ptxas serializes
 // them there): a unit whose rows lie past P runs on zeros and is not
 // written back.
-template <int NB, int UNITS, bool SPLIT_B, bool FLUSH>
+template <int NB, int UNITS, bool SPLIT_B>
 __device__ void pointwise_wgmma(float* s, int P, int C, int ld, Ring& ring) {
   constexpr int kFlushChunks = 4;  // k-chunks the sums stay in the tensor core
   constexpr int NR = NB / 2;  // sums per thread of one unit
@@ -639,11 +623,11 @@ __device__ void pointwise_wgmma(float* s, int P, int C, int ld, Ring& ring) {
     for (int j = 0; j < UNITS; ++j)
 #pragma unroll
       for (int e = 0; e < NR; ++e) acc[j][e] = 0.f;
-    float sum[FLUSH ? UNITS : 1][FLUSH ? NR : 1];
+    float sum[UNITS][NR];
 #pragma unroll
-    for (int j = 0; j < (FLUSH ? UNITS : 1); ++j)
+    for (int j = 0; j < UNITS; ++j)
 #pragma unroll
-      for (int e = 0; e < (FLUSH ? NR : 1); ++e) sum[j][e] = 0.f;
+      for (int e = 0; e < NR; ++e) sum[j][e] = 0.f;
     uint32_t ah[2][UNITS][4], al[2][UNITS][4];
     // k-chunk ks's A fragments of every unit into register set `par`
     auto load_a = [&](int ks, int par) {
@@ -671,7 +655,7 @@ __device__ void pointwise_wgmma(float* s, int P, int C, int ld, Ring& ring) {
         const uint32_t stage = ring.data + ring.slot * ring.stage_bytes;
         mbar_wait(ring.full + 8 * ring.slot, ring.phase);
         __syncwarp();
-        const int scale_first = (FLUSH && ks % kFlushChunks == 0) ? 0 : 1;
+        const int scale_first = ks % kFlushChunks == 0 ? 0 : 1;
         wgmma_fence();
         // pass 0: a_lo b_hi; pass 1 (SPLIT_B): a_hi b_lo; pass 2: a_hi b_hi
 #pragma unroll
@@ -694,13 +678,11 @@ __device__ void pointwise_wgmma(float* s, int P, int C, int ld, Ring& ring) {
           fence_regs(ah[par][j]);
           fence_regs(al[par][j]);
         }
-        if constexpr (FLUSH) {
-          if (ks % kFlushChunks == kFlushChunks - 1 || ks == nks - 1) {
+        if (ks % kFlushChunks == kFlushChunks - 1 || ks == nks - 1) {
 #pragma unroll
-            for (int j = 0; j < UNITS; ++j)
+          for (int j = 0; j < UNITS; ++j)
 #pragma unroll
-              for (int e = 0; e < NR; ++e) sum[j][e] += acc[j][e];
-          }
+            for (int e = 0; e < NR; ++e) sum[j][e] += acc[j][e];
         }
         __syncwarp();
         if (lane == 0) ring.release(ring.slot, ring.index);
@@ -716,17 +698,10 @@ __device__ void pointwise_wgmma(float* s, int P, int C, int ld, Ring& ring) {
 #pragma unroll
         for (int jn = 0; jn < NB / 8; ++jn) {
           float* o = s + ((q / tiles) * NB + 8 * jn + 2 * t) * ld + rw + g;
-          if constexpr (FLUSH) {
-            o[0] = sum[j][4 * jn];
-            o[ld] = sum[j][4 * jn + 1];
-            o[8] = sum[j][4 * jn + 2];
-            o[ld + 8] = sum[j][4 * jn + 3];
-          } else {
-            o[0] = acc[j][4 * jn];
-            o[ld] = acc[j][4 * jn + 1];
-            o[8] = acc[j][4 * jn + 2];
-            o[ld + 8] = acc[j][4 * jn + 3];
-          }
+          o[0] = sum[j][4 * jn];
+          o[ld] = sum[j][4 * jn + 1];
+          o[8] = sum[j][4 * jn + 2];
+          o[ld + 8] = sum[j][4 * jn + 3];
         }
       }
     }
@@ -943,7 +918,7 @@ resblock_chain_wgmma_kernel(const T* __restrict__ x, const float* __restrict__ p
   }
   __syncthreads();
   auto product = [&](float* u, int Pu, int ldu, int, int) {
-    pointwise_wgmma<NB, UNITS, kSplitB, MINB == 1>(u, Pu, C, ldu, ring);
+    pointwise_wgmma<NB, UNITS, kSplitB>(u, Pu, C, ldu, ring);
   };
   run_chain<T, K>(x, out, xs, xs + C * ld, dw1, b1, dw2, b2, C, T_len, M, t_tile, sc,
                   product);

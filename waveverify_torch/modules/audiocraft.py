@@ -49,10 +49,12 @@ class StreamableLSTM(nn.Module):
     plus the input when ``skip`` (audiocraft's ``StreamableLSTM``).
 
     On a card without autograd every frame of every layer runs in one
-    launch of the persistent recurrence kernel (``lstm.persistent``), where
+    launch of the persistent recurrence kernel (``lstm.persistent``; one
+    per ``max_batch`` batch rows of the plan), where
     :func:`~waveverify_torch.ops.lstm_recurrence.device_plan` finds a plan
-    for the width and depth; cuDNN's LSTM runs where none fits, under
-    autograd and on the CPU."""
+    that holds all the layers' weights at once. cuDNN's LSTM runs where none
+    fits (on an H100: two layers of 1024 or wider, or over four layers),
+    under autograd and on the CPU."""
 
     def __init__(self, dimension: int, num_layers: int = 2, skip: bool = True):
         super().__init__()

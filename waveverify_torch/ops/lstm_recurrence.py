@@ -16,11 +16,10 @@ biases):
 2. every frame of every layer in one cooperative launch: CTA k of layer l
    owns ``units[l]`` hidden units and keeps their gate rows of the weights
    in shared memory; layers run as a pipeline, each a frame behind the one
-   below at most (:func:`lstm_plan` ``kind="wavefront"``). Where the layers'
-   weights do not fit the card's shared memory together, each layer runs in
-   a launch of its own after a GEMM of its input product (``"layered"``);
-   where one layer's do not fit either, there is no plan (None) and the
-   caller keeps cuDNN.
+   below at most (the wavefront of :func:`lstm_plan`). Where the layers'
+   weights do not fit the card's shared memory together (or there are more
+   than ``MAX_LAYERS``), there is no plan (None) and the caller keeps
+   cuDNN.
 
 The plan depends on H, the number of layers and the card (its SM count and
 shared memory per block) alone; T and B are the launch's arguments, and a
@@ -35,7 +34,6 @@ in this checkout, into ``build/kernels/`` beside the package.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from dataclasses import dataclass
 from pathlib import Path
@@ -78,12 +76,10 @@ Weights = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 @dataclass(frozen=True)
 class LstmPlan:
-    """How one LSTM call runs: ``kind`` "wavefront" (every layer in one
-    launch) or "layered" (a launch per layer); per layer of a launch the
+    """How one LSTM call runs, every layer in one launch: per layer the
     hidden units each CTA owns and the CTAs; the launch's shared memory per
     CTA for one batch group; the batch rows one launch holds."""
 
-    kind: str
     units: Tuple[int, ...]
     ctas: Tuple[int, ...]
     smem: int
@@ -130,7 +126,7 @@ def smem_bytes(h: int, units: Sequence[int], batch: int = BATCH_GROUP) -> int:
     return 4 * sum(max(p[i] for p in parts) for i in range(4))
 
 
-def _fit(kind: str, h: int, units: Tuple[int, ...], sms: int, smem: int) -> Optional[LstmPlan]:
+def _fit(h: int, units: Tuple[int, ...], sms: int, smem: int) -> Optional[LstmPlan]:
     """The launch of ``units`` if its CTAs fit one per SM and their shared
     memory fits, else None; ``max_batch`` is the most batch rows, a
     multiple of 8, whose cell state fits beside the rest."""
@@ -141,7 +137,7 @@ def _fit(kind: str, h: int, units: Tuple[int, ...], sms: int, smem: int) -> Opti
     rows = BATCH_GROUP + (smem - need) // (4 * max(units)) // BATCH_GROUP * BATCH_GROUP
     while smem_bytes(h, units, rows) > smem:
         rows -= BATCH_GROUP
-    return LstmPlan(kind, units, ctas, need, rows)
+    return LstmPlan(units, ctas, need, rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,17 +150,16 @@ def lstm_plan(h: int, layers: int, sms: int = H100_SMS,
     layer 0, whose input product is precomputed; 2H above it), so layers
     above the first take half the units of the first, which balances the
     CTAs' work. The fewest units per CTA whose CTAs all fit one per SM win:
-    the most SMs share a frame's work. Wavefront if all layers fit one
-    launch that way (up to ``MAX_LAYERS``), else one launch per layer
-    (layered, with the same rule for one layer), else None."""
-    if layers <= MAX_LAYERS:
-        for u in range(1, min(h, MAX_UNITS) + 1):
-            units = (min(h, 2 * u, MAX_UNITS),) + (u,) * (layers - 1) if layers > 1 else (u,)
-            plan = _fit("wavefront", h, units, sms, smem)
-            if plan is not None:
-                return plan
-    one = lstm_plan(h, 1, sms, smem) if layers > 1 else None
-    return None if one is None else dataclasses.replace(one, kind="layered")
+    the most SMs share a frame's work. None where the layers (at most
+    ``MAX_LAYERS``) do not fit one launch that way."""
+    if layers > MAX_LAYERS:
+        return None
+    for u in range(1, min(h, MAX_UNITS) + 1):
+        units = (min(h, 2 * u, MAX_UNITS),) + (u,) * (layers - 1) if layers > 1 else (u,)
+        plan = _fit(h, units, sms, smem)
+        if plan is not None:
+            return plan
+    return None
 
 
 def device_plan(device: torch.device, h: int, layers: int) -> Optional[LstmPlan]:
@@ -172,13 +167,6 @@ def device_plan(device: torch.device, h: int, layers: int) -> Optional[LstmPlan]
     props = torch.cuda.get_device_properties(device)
     smem = getattr(props, "shared_memory_per_block_optin", H100_SMEM)
     return lstm_plan(h, layers, props.multi_processor_count, smem)
-
-
-def launches(plan: LstmPlan, layers: int) -> List[List[int]]:
-    """The layers of each launch, in order."""
-    if plan.kind == "wavefront":
-        return [list(range(layers))]
-    return [[layer] for layer in range(layers)]
 
 
 def unit_slices(h: int, units: int) -> List[Tuple[int, int]]:
@@ -222,45 +210,44 @@ def _gate_sums(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], units: int
 def lstm_recurrence_ref(seq: torch.Tensor, weights: Weights,
                         plan: Optional[LstmPlan] = None) -> torch.Tensor:
     """The LSTM's output ``[T, B, H]`` of ``seq [T, B, H]``, computed as the
-    kernel computes it, in f32: per launch of ``plan`` (default: the H100's
-    :func:`lstm_plan`) the first layer's input product as one GEMM, then the
-    frames in wavefront order (step s runs frame s - i of the launch's
-    layer i), each layer's gates per CTA of its unit partition: per k-slice
-    the input half's and then the recurrent half's products into one sum,
-    the slices' sums in four chains (:func:`_gate_sums`), then the product
-    or the bias."""
+    kernel computes it, in f32, with the partition of ``plan`` (default: the
+    H100's :func:`lstm_plan`): the first layer's input product as one GEMM,
+    then the frames in wavefront order (step s runs frame s - i of layer
+    i), each layer's gates per CTA of its unit partition: per k-slice the
+    input half's and then the recurrent half's products into one sum, the
+    slices' sums in four chains (:func:`_gate_sums`), then the product or
+    the bias."""
     t_len, batch, h = seq.shape
-    plan = plan or lstm_plan(h, len(weights))
+    layers = len(weights)
+    plan = plan or lstm_plan(h, layers)
     if plan is None:
-        raise ValueError(f"no plan for H={h}, {len(weights)} layers")
+        raise ValueError(f"no plan for H={h}, {layers} layers")
     x = seq.float()
-    for group in launches(plan, len(weights)):
-        pre = _input_product(x, weights[group[0]][0], *weights[group[0]][2:])
-        outs = [x.new_zeros(t_len, batch, h) for _ in group]
-        cells = [x.new_zeros(batch, h) for _ in group]
-        for s in range(t_len + len(group) - 1):
-            for i, layer in enumerate(group):
-                t = s - i
-                if not 0 <= t < t_len:
-                    continue
-                w_ih, w_hh, b_ih, b_hh = (w.float() for w in weights[layer])
-                gates = x.new_zeros(batch, 4 * h)
-                for u0, nu in unit_slices(h, plan.units[i]):
-                    rows = torch.cat([torch.arange(g * h + u0, g * h + u0 + nu,
-                                                   device=x.device) for g in range(4)])
-                    pairs = []
-                    if i > 0:  # the input half, then the recurrent half
-                        pairs.append((w_ih[rows], outs[i - 1][t]))
-                    if t > 0:
-                        pairs.append((w_hh[rows], outs[i][t - 1]))
-                    part = _gate_sums(pairs, plan.units[i]) if pairs else 0
-                    base = pre[t][:, rows] if i == 0 else (b_ih + b_hh)[rows]
-                    gates[:, rows] = part + base
-                gi, gf, gg, go = gates.chunk(4, dim=1)
-                cells[i] = torch.sigmoid(gf) * cells[i] + torch.sigmoid(gi) * torch.tanh(gg)
-                outs[i][t] = torch.sigmoid(go) * torch.tanh(cells[i])
-        x = outs[-1]
-    return x
+    pre = _input_product(x, weights[0][0], *weights[0][2:])
+    outs = [x.new_zeros(t_len, batch, h) for _ in range(layers)]
+    cells = [x.new_zeros(batch, h) for _ in range(layers)]
+    for s in range(t_len + layers - 1):
+        for i in range(layers):
+            t = s - i
+            if not 0 <= t < t_len:
+                continue
+            w_ih, w_hh, b_ih, b_hh = (w.float() for w in weights[i])
+            gates = x.new_zeros(batch, 4 * h)
+            for u0, nu in unit_slices(h, plan.units[i]):
+                rows = torch.cat([torch.arange(g * h + u0, g * h + u0 + nu,
+                                               device=x.device) for g in range(4)])
+                pairs = []
+                if i > 0:  # the input half, then the recurrent half
+                    pairs.append((w_ih[rows], outs[i - 1][t]))
+                if t > 0:
+                    pairs.append((w_hh[rows], outs[i][t - 1]))
+                part = _gate_sums(pairs, plan.units[i]) if pairs else 0
+                base = pre[t][:, rows] if i == 0 else (b_ih + b_hh)[rows]
+                gates[:, rows] = part + base
+            gi, gf, gg, go = gates.chunk(4, dim=1)
+            cells[i] = torch.sigmoid(gf) * cells[i] + torch.sigmoid(gi) * torch.tanh(gg)
+            outs[i][t] = torch.sigmoid(go) * torch.tanh(cells[i])
+    return outs[-1]
 
 
 # --------------------------------------------------------------------------
@@ -320,22 +307,21 @@ def _ptrs(tensors: Sequence[Optional[torch.Tensor]]):
                                               for t in tensors])
 
 
-def _launch(pre: torch.Tensor, weights: Weights, group: Sequence[int], outs: Sequence[torch.Tensor],
+def _launch(pre: torch.Tensor, weights: Weights, outs: Sequence[torch.Tensor],
             counters: torch.Tensor, b0: int, nb: int, plan: LstmPlan) -> None:
-    """One cooperative launch: the layers ``group`` over batch rows
-    ``[b0, b0 + nb)``."""
+    """One cooperative launch: every layer over batch rows ``[b0, b0 +
+    nb)``."""
     import ctypes
 
     lib = _library()
     t_len, batch, h = outs[0].shape
-    n = len(group)
-    layer_ws = [weights[layer] for layer in group]
+    n = len(weights)
     with torch.cuda.device(pre.device):
         err = lib.wv_lstm_recurrence(
             pre[:, b0:].data_ptr(),
-            _ptrs([None] + [w[0] for w in layer_ws[1:]]), _ptrs([w[1] for w in layer_ws]),
-            _ptrs([None] + [w[2] for w in layer_ws[1:]]),
-            _ptrs([None] + [w[3] for w in layer_ws[1:]]),
+            _ptrs([None] + [w[0] for w in weights[1:]]), _ptrs([w[1] for w in weights]),
+            _ptrs([None] + [w[2] for w in weights[1:]]),
+            _ptrs([None] + [w[3] for w in weights[1:]]),
             _ptrs([o[:, b0:] for o in outs]), counters.data_ptr(), t_len, nb, batch, h, n,
             (ctypes.c_int * n)(*plan.units), (ctypes.c_int * n)(*plan.ctas), _SPIN_NS,
             torch.cuda.current_stream(pre.device).cuda_stream)
@@ -361,23 +347,21 @@ def _check(seq: torch.Tensor, weights: Weights) -> None:
 
 
 def _run(seq: torch.Tensor, weights: Weights, plan: LstmPlan) -> torch.Tensor:
-    """The kernel on a CUDA tensor: per launch group, the first layer's input
-    product, then the launches over the batch rows."""
+    """The kernel on a CUDA tensor: the first layer's input product, then
+    one launch per ``plan.max_batch`` batch rows."""
     _check(seq, weights)
-    t_len, batch, h = seq.shape
+    batch = seq.shape[1]
     x = seq.contiguous()
-    for group in launches(plan, len(weights)):
-        pre = _input_product(x, weights[group[0]][0], *weights[group[0]][2:])
-        outs = [torch.empty_like(x) for _ in group]
-        chunks = range(0, batch, plan.max_batch)
-        counters = torch.zeros(len(chunks), len(group) * _COUNTER_STRIDE, dtype=torch.int32,
-                               device=x.device)
-        with spans.span(SPAN):
-            for n, b0 in enumerate(chunks):
-                _launch(pre, weights, group, outs, counters[n], b0,
-                        min(plan.max_batch, batch - b0), plan)
-        x = outs[-1]
-    return x
+    pre = _input_product(x, weights[0][0], *weights[0][2:])
+    outs = [torch.empty_like(x) for _ in weights]
+    chunks = range(0, batch, plan.max_batch)
+    counters = torch.zeros(len(chunks), len(weights) * _COUNTER_STRIDE, dtype=torch.int32,
+                           device=x.device)
+    with spans.span(SPAN):
+        for n, b0 in enumerate(chunks):
+            _launch(pre, weights, outs, counters[n], b0, min(plan.max_batch, batch - b0),
+                    plan)
+    return outs[-1]
 
 
 def lstm_recurrence(seq: torch.Tensor, weights: Weights,
@@ -387,8 +371,9 @@ def lstm_recurrence(seq: torch.Tensor, weights: Weights,
     ``(w_ih, w_hh, b_ih, b_hh)`` as ``torch.nn.LSTM`` keeps them.
 
     CPU tensors take :func:`lstm_recurrence_ref`. CUDA tensors take the
-    kernel, in the launches of ``plan`` (default: :func:`device_plan`), or
-    raise where no plan fits; ``launches`` counts kernel launches."""
+    kernel, one launch per ``plan.max_batch`` batch rows (default plan:
+    :func:`device_plan`), or raise where no plan fits; ``launches`` counts
+    kernel launches."""
     if seq.device.type == "cpu":
         return lstm_recurrence_ref(seq, weights, plan)
     if seq.device.type != "cuda":

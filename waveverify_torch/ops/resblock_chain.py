@@ -11,8 +11,11 @@ bf16. Weights follow the JAX package's orientation: ``pw [M, Cin, Cout]``
 (``u @ pw``), ``dw [M, k, C]``, ``b [M, C]``, stored as f32; under bf16
 serving their values are rounded to bf16 first, as the TPU wrapper does.
 
-The 1x1 products run on the tensor cores by one of two routes, chosen per
-width from a table (``_WGMMA_WIDTHS``; the source's header has both):
+The 1x1 products run on the tensor cores by one of two routes.
+:func:`product_route` alone picks a width's, from a table
+(``_WGMMA_WIDTHS``: wgmma at C = 192, mma.sync at every other width), and
+every planning function derives the route from the width (the source's
+header has both routes):
 
 - ``wgmma``: Hopper's warpgroup ``wgmma.mma_async.m64nNk8`` in TF32, with
   A (time rows x input channels) from registers and B (the weights) from
@@ -84,16 +87,12 @@ _FLOP_PER_BYTE = 40.0
 # 16 MT rows by 8 NT columns; a tiling for one CTA per SM may use up to 255
 # registers.
 _TILINGS = ((12, 2, 1), (8, 3, 1), (6, 4, 1), (6, 2, 2), (4, 3, 2))
-# wgmma (WV_WG_TILINGS in the source): (NB, UNITS, CTAs per SM). Each of the
-# two warpgroups holds UNITS units of 64 rows by NB columns of sums. 96 x 2
-# serves C = 192; the two-CTA tilings let chip_smoke.py time the wgmma route
-# at C = 64, 96 and 128, where mma.sync measured faster.
-_WG_TILINGS = ((96, 2, 1), (64, 2, 2), (96, 1, 2))
 # The route per width: a width listed here runs wgmma with this tiling, any
-# other the mma.sync tiling of product_tiling. wgmma only where it measured
-# faster on the card (chip_smoke.py phase 5 times both routes at every
-# width a compiled tiling fits): C = 192. At C = 64, 96, 128 and 384 the
-# wgmma tilings above run the width slower (PERF.md).
+# other the mma.sync tiling of product_tiling. Its values are the wgmma
+# tilings compiled (WV_WG_TILINGS in the source): (NB, UNITS, CTAs per SM),
+# each of the two warpgroups holding UNITS units of 64 rows by NB columns
+# of sums. wgmma only where it measured faster on the card: C = 192. At
+# C = 64, 96, 128 and 384 it ran slower than mma.sync (PERF.md).
 _WGMMA_WIDTHS = {192: (96, 2, 1)}
 _WARPS = 8
 _WG_ROWS = 64  # rows of one wgmma tile
@@ -235,12 +234,12 @@ def chunk_rows(c: int) -> int:
     return _WARPS // -(-c // (8 * nt)) * 16 * mt
 
 
-def rows_per_pass(c: int, route: Optional[Route] = None) -> int:
-    """Rows one product pass (sweep) covers on the route: mma.sync's
-    :func:`chunk_rows`; for wgmma, the 2 UNITS (row tile, column block)
-    units of the two warpgroups cover every column block of 2 UNITS /
-    (c / NB) row tiles of 64. Every pass streams the C x C matrix once."""
-    kind, (a, b, _) = route or product_route(c)
+def rows_per_pass(c: int) -> int:
+    """Rows one product pass (sweep) covers on the width's route:
+    mma.sync's :func:`chunk_rows`; for wgmma, the 2 UNITS (row tile, column
+    block) units of the two warpgroups cover every column block of 2 UNITS
+    / (c / NB) row tiles of 64. Every pass streams the C x C matrix once."""
+    kind, (a, b, _) = product_route(c)
     if kind == "mma":
         return chunk_rows(c)
     return 2 * b // (c // a) * _WG_ROWS
@@ -260,47 +259,46 @@ def slab_bytes(c: int, rows: int) -> int:
     return 2 * 4 * c * (-(-rows // 16) * 16 + _SLAB_PAD)
 
 
-def smem_bytes(c: int, rows: int, stages: int = _MIN_STAGES, route: Optional[Route] = None,
-               split: bool = True) -> int:
+def smem_bytes(c: int, rows: int, stages: int = _MIN_STAGES, split: bool = True) -> int:
     """Shared memory of one CTA (the kernel's ``chain_smem``): the slabs
     and, on the wgmma route, the ring's barriers and ``stages`` stages."""
-    if (route or product_route(c))[0] == "mma":
+    if product_route(c)[0] == "mma":
         return slab_bytes(c, rows)
     return slab_bytes(c, rows) + _BAR_BYTES + stages * stage_bytes(c, split)
 
 
-def _slab_rows(c: int, budget: int, route: Optional[Route] = None) -> int:
+def _slab_rows(c: int, budget: int) -> int:
     """Rows of the slabs (halo + tile) that fit ``budget`` beside the
     route's minimum ring: a whole number of 16-row groups, and one product
     pass where a second pass would be at most a quarter full (every pass
     re-reads the C x C matrix, whatever rows it has left)."""
-    ring = smem_bytes(c, 0, route=route) - slab_bytes(c, 0)
+    ring = smem_bytes(c, 0) - slab_bytes(c, 0)
     rows = ((budget - ring) // (2 * 4 * c) - _SLAB_PAD) // 16 * 16
-    r = rows_per_pass(c, route)
+    r = rows_per_pass(c)
     return r if r < rows <= r + r // 4 else rows
 
 
-def _tile(c: int, m: int, k: int, budget: int, route: Optional[Route] = None) -> int:
+def _tile(c: int, m: int, k: int, budget: int) -> int:
     """Rows of T one CTA owns when its slabs and ring fit ``budget``."""
-    return _slab_rows(c, budget, route) - m * 2 * (k - 1)
+    return _slab_rows(c, budget) - m * 2 * (k - 1)
 
 
-def _launch_tile(c: int, m: int, k: int, route: Optional[Route] = None) -> int:
+def _launch_tile(c: int, m: int, k: int) -> int:
     """Tile for an m-block launch: two CTAs per SM when the product's
     tiling allows two and the tile still covers four halos, else the whole
     shared memory of the SM."""
     halo = m * 2 * (k - 1)
-    tt = _tile(c, m, k, _SMEM_HALF, route)
-    if (route or product_route(c))[1][2] == 2 and tt >= 4 * halo:
+    tt = _tile(c, m, k, _SMEM_HALF)
+    if product_route(c)[1][2] == 2 and tt >= 4 * halo:
         return tt
-    return _tile(c, m, k, _SMEM_FULL, route)
+    return _tile(c, m, k, _SMEM_FULL)
 
 
-def ring_stages(c: int, rows: int, bf16: bool = False, route: Optional[Route] = None) -> int:
+def ring_stages(c: int, rows: int, bf16: bool = False) -> int:
     """Stages of the wgmma ring beside slabs of ``rows`` rows: as many as
     the CTA's budget leaves (two CTAs per SM where the plan chose that),
     at most ``_MAX_STAGES``; 0 on the mma.sync route."""
-    kind, (_, _, ctas) = route or product_route(c)
+    kind, (_, _, ctas) = product_route(c)
     if kind == "mma":
         return 0
     base = slab_bytes(c, rows) + _BAR_BYTES
@@ -316,13 +314,13 @@ def _groups(m: int) -> List[int]:
     return [m // n + (i < m % n) for i in range(n)]
 
 
-def plan_threshold(c: int, m: int, k: int, route: Optional[Route] = None) -> Optional[float]:
+def plan_threshold(c: int, m: int, k: int) -> Optional[float]:
     """The FLOP per byte at and above which :func:`chain_plan` runs the
     chain in :func:`_groups` launches rather than one launch per block: the
     products' extra halo recompute over the device-memory traffic the
     fewer launches save. None when the two plans are the same launches."""
     def recompute(mm: int) -> float:
-        tt = _launch_tile(c, mm, k, route)
+        tt = _launch_tile(c, mm, k)
         return (tt + mm * 2 * (k - 1)) / tt if tt > 0 else float("inf")
 
     groups = _groups(m)
@@ -332,7 +330,7 @@ def plan_threshold(c: int, m: int, k: int, route: Optional[Route] = None) -> Opt
     return extra / (8 * c * (m - len(groups)))
 
 
-def chain_plan(c: int, m: int, k: int, route: Optional[Route] = None) -> List[Tuple[int, int]]:
+def chain_plan(c: int, m: int, k: int) -> List[Tuple[int, int]]:
     """Launches for an m-block chain at width c (a multiple of 16):
     ``[(blocks, t_tile), ...]``.
 
@@ -343,12 +341,12 @@ def chain_plan(c: int, m: int, k: int, route: Optional[Route] = None) -> List[Tu
     card's f32 FLOP-per-byte balance (:func:`plan_threshold`); the cheaper
     plan wins. A chain of more than ``_MAX_BLOCKS`` blocks is cut into the
     fewest launches of near-equal length; the blocks are sequential, so the
-    result is the same. ``route`` defaults to the width's
+    result is the same. The tiles follow the width's route
     (:func:`product_route`)."""
-    threshold = plan_threshold(c, m, k, route)
+    threshold = plan_threshold(c, m, k)
     if threshold is None or _FLOP_PER_BYTE >= threshold:
-        return [(g, _launch_tile(c, g, k, route)) for g in _groups(m)]
-    return [(1, _launch_tile(c, 1, k, route))] * m
+        return [(g, _launch_tile(c, g, k)) for g in _groups(m)]
+    return [(1, _launch_tile(c, 1, k))] * m
 
 
 # --------------------------------------------------------------------------
@@ -433,7 +431,7 @@ def unpack_wgmma_weights(packed: torch.Tensor) -> torch.Tensor:
     return v.permute(0, 1, 4, 6, 2, 3, 5).reshape(m, nks * 8, ncb * n8 * 8).contiguous()
 
 
-def _packed(pw: torch.Tensor, bf16: bool = False, route: Optional[Route] = None) -> torch.Tensor:
+def _packed(pw: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """``pw`` in the order its width's route reads it
     (:func:`pack_chain_weights` or :func:`pack_wgmma_weights`), kept on the
     tensor until it is written in place. ``bf16``: the activation is bf16,
@@ -441,15 +439,14 @@ def _packed(pw: torch.Tensor, bf16: bool = False, route: Optional[Route] = None)
     b_lo`` pass (the wgmma image then holds hi alone); values that are not
     bf16 values would be cut to 10 mantissa bits there, so they raise here
     (checked once per version of the tensor)."""
-    route = route or product_route(pw.shape[-1])
-    key = (pw.data_ptr(), pw._version, bf16, route)
+    key = (pw.data_ptr(), pw._version, bf16)
     hit = getattr(pw, "_packed_for_kernel", None)
     if hit is None or hit[0] != key:
         w = pw.detach()
         if bf16 and not torch.equal(w, w.bfloat16().float()):
             raise ValueError("with a bfloat16 activation pw must hold bfloat16 "
                              "values (see stack_chain_weights)")
-        kind, (a, _, _) = route
+        kind, (a, _, _) = product_route(pw.shape[-1])
         image = (pack_chain_weights(w) if kind == "mma"
                  else pack_wgmma_weights(w, a, split=not bf16))
         hit = (key, image)
@@ -458,16 +455,16 @@ def _packed(pw: torch.Tensor, bf16: bool = False, route: Optional[Route] = None)
 
 
 def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
-            alpha, t_tile: int, route: Route) -> torch.Tensor:
-    """One launch. ``ws`` holds pw1 and pw2 in the route's order."""
+            alpha, t_tile: int) -> torch.Tensor:
+    """One launch. ``ws`` holds pw1 and pw2 in the width's route's order."""
     import ctypes
 
     lib = _library()
     b, c, t = x.shape
     m, k = ws[1].shape[0], ws[1].shape[1]
-    kind, (ta, tb, _) = route
+    kind, (ta, tb, _) = product_route(c)
     bf16 = x.dtype == torch.bfloat16
-    stages = ring_stages(c, m * 2 * (k - 1) + min(t_tile, t), bf16, route)
+    stages = ring_stages(c, m * 2 * (k - 1) + min(t_tile, t), bf16)
     out = torch.empty_like(x)
     ps = (ctypes.c_float * m)(*[float(p) for p in prescales])
     # the C side launches on the current device: make it x's
@@ -483,8 +480,7 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
     return out
 
 
-def kernel_info(c: int, rows: int, bf16: bool = False,
-                route: Optional[Route] = None) -> Tuple[int, int, int]:
+def kernel_info(c: int, rows: int, bf16: bool = False) -> Tuple[int, int, int]:
     """``(registers per thread, CTAs resident on one SM, shared memory per
     CTA)`` of the kernel a launch at width c (k = 5) takes when its slabs
     hold ``rows`` rows (with :func:`ring_stages` stages on the wgmma
@@ -492,11 +488,10 @@ def kernel_info(c: int, rows: int, bf16: bool = False,
     import ctypes
 
     lib = _library()
-    route = route or product_route(c)
-    kind, (ta, tb, _) = route
+    kind, (ta, tb, _) = product_route(c)
     regs, ctas, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     err = lib.wv_resblock_chain_info(c, rows, int(kind == "wgmma"), ta, tb,
-                                     ring_stages(c, rows, bf16, route), int(bf16),
+                                     ring_stages(c, rows, bf16), int(bf16),
                                      ctypes.byref(regs), ctypes.byref(ctas),
                                      ctypes.byref(smem))
     if err != 0:
@@ -551,26 +546,21 @@ def resblock_chain(x: torch.Tensor, pw1s, dw1s, b1s, pw2s, dw2s, b2s, *,
     return _run(x, ws, prescales, res_scale, alpha)
 
 
-def _run(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale, alpha,
-         route: Optional[Route] = None,
-         plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
+def _run(x: torch.Tensor, ws: Sequence[torch.Tensor], prescales, res_scale,
+         alpha) -> torch.Tensor:
     """The kernel on a CUDA tensor: channels padded, weights checked and
-    packed, the launches of :func:`chain_plan` on the width's route (a
-    measurement may name the other route, or another plan)."""
+    packed, the launches of :func:`chain_plan` on the width's route."""
     c = x.shape[1]
     m = len(prescales)
     x, ws = pad_channels(x, ws)
     _check(x, ws, m)
     k = ws[1].shape[1]
     bf16 = x.dtype == torch.bfloat16
-    route = route or product_route(x.shape[1])
-    ws = (_packed(ws[0], bf16, route), ws[1], ws[2], _packed(ws[3], bf16, route), ws[4],
-          ws[5])
+    ws = (_packed(ws[0], bf16), ws[1], ws[2], _packed(ws[3], bf16), ws[4], ws[5])
     i = 0
-    for blocks, t_tile in plan or chain_plan(x.shape[1], m, k, route):
+    for blocks, t_tile in chain_plan(x.shape[1], m, k):
         sl = slice(i, i + blocks)  # a slice of whole blocks stays contiguous
-        x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile,
-                    route)
+        x = _launch(x, [w[sl] for w in ws], prescales[sl], res_scale, alpha, t_tile)
         i += blocks
     return x if x.shape[1] == c else x[:, :c].contiguous()
 
