@@ -22,7 +22,14 @@ Phases, each fatal on failure:
      reference's loop of f32 products at LSTM_TOL at the serving path's
      shape (H 512, B 8, T 1500) and five more (batch groups, a ragged
      group, one frame, three layers, a launch per layer), the TF32 control
-     failing there, and against its plain version at a small shape;
+     failing there, and against its plain version at a small shape; then
+     AudioSeal's fused residual block kernel (csrc/dense_resblock.cu): its
+     build (registers and spills of each tiling; any spill fails), its pack
+     kernel against pack_weights at the four widths' conv shapes, the
+     block's kernel route against its plain version at each of the four
+     widths, a dilated block, T = 2, a 30 s clip of odd length and the
+     serving path's four (8, C, T) shapes, one launch and two pack launches
+     each, the TF32 control failing at the first;
   4. the paths, each with the kernel's launch count read around it, f32
      and bf16, on the committed r5 checkpoint:
      a. embed+detect: WaveVerify.embed_batch / detect_batch and
@@ -37,7 +44,8 @@ Phases, each fatal on failure:
         deltas to its committed sweeps of r5 printed beside;
      e. AudioSeal (random init) through embed_batch / detect_batch at 8 x
         30 s, the recurrence kernel's launches read around each call (2 and
-        1);
+        1), and the fused block kernel's (8 and 4) and its pack kernel's
+        (16 and 8);
   5. times (CUDA events, after warm-up): embed+detect and locate clips/s at
      batch 64, the host time to submit one call, the device's busy share,
      the long-audio path's seconds and real-time factor, the sweep's wall
@@ -47,7 +55,9 @@ Phases, each fatal on failure:
      and CTAs per SM, and the chain's C x C products alone through
      torch.matmul; the recurrence kernel per AudioSeal embed+detect
      against cuDNN's nn.LSTM (library_ms), the reference's loop and its
-     bound;
+     bound; the fused block kernel per AudioSeal embed+detect (12 blocks
+     at 8 x 30 s) against the blocks' own modules (library_ms: cuDNN's
+     convs and the elementwise passes), its plain version and its bound;
   6. training at TrainConfig() (conf/base.yml, full width), f32 with TF32
      off: at each of its 10 chain shapes, the kernel's autograd Function
      inside torch.utils.checkpoint against the plain version's gradients
@@ -783,35 +793,47 @@ def check_audioseal(torch, report):
     """Path e: AudioSeal served through ``WaveVerify.embed_batch`` /
     ``detect_batch`` at the path's shape (random init, 8 x 30 s), the
     recurrence kernel's launches set to 0 before each call and read after
-    it: two per ``embed_batch``, one per ``detect_batch``. Returns the
-    launches."""
+    it: two per ``embed_batch``, one per ``detect_batch``; and the fused
+    residual block kernel's (RESBLOCK_CALLS): eight and four, with two
+    launches of its pack kernel each (PACK_CALLS). Returns the recurrence
+    kernel's launches."""
     import numpy as np
 
     from waveverify_torch import WaveVerify
     from waveverify_torch.config import AudioSealConfig
+    from waveverify_torch.ops import dense_resblock as dr
     from waveverify_torch.ops import lstm_recurrence as lr
 
     wv = WaveVerify(None, config=AudioSealConfig(), device="cuda", seed=0)
     rng = np.random.RandomState(0)
     audio = (rng.randn(LSTM_BATCH, AUDIOSEAL_SECONDS * CLIP) * 0.1).astype(np.float32)
     bits = rng.randint(0, 2, (LSTM_BATCH, 16)).astype(np.float32)
-    total = 0
+    counters = {"lstm": lr.lstm_recurrence, "block": dr.dense_resblock,
+                "pack": dr.pack_on_card}
+    want = {"lstm": LSTM_CALLS, "block": RESBLOCK_CALLS, "pack": PACK_CALLS}
+    totals = dict.fromkeys(counters, 0)
     for _ in range(2):  # a first call, then a warm one
-        lr.lstm_recurrence.launches = 0
+        per_call = {}
+        before = {k: f.launches for k, f in counters.items()}
         wm = wv.embed_batch(audio, bits)
-        n_embed = lr.lstm_recurrence.launches
-        lr.lstm_recurrence.launches = 0
+        mid = {k: f.launches for k, f in counters.items()}
         _, score = wv.detect_batch(wm)
-        n = {"embed_batch": n_embed, "detect_batch": lr.lstm_recurrence.launches}
-        total += sum(n.values())
-        if n != LSTM_CALLS:
-            raise AssertionError(f"audioseal: launches {n} != {LSTM_CALLS}")
+        for k, f in counters.items():
+            per_call[k] = {"embed_batch": mid[k] - before[k], "detect_batch": f.launches - mid[k]}
+            totals[k] += sum(per_call[k].values())
+        if per_call != want:
+            raise AssertionError(f"audioseal: launches {per_call} != {want}")
         if not (np.isfinite(wm).all() and np.isfinite(score).all()):
             raise AssertionError("audioseal: non-finite output")
-    report["audioseal"] = {"launches_per_call": n, "launches": total}
-    print(f"audioseal {LSTM_BATCH} x {AUDIOSEAL_SECONDS} s: recurrence kernel launches per "
-          f"call {n}; total {total}")
-    return total
+    report["audioseal"] = {"launches_per_call": per_call["lstm"], "launches": totals["lstm"],
+                           "resblock_launches_per_call": per_call["block"],
+                           "resblock_launches": totals["block"],
+                           "pack_launches_per_call": per_call["pack"],
+                           "pack_launches": totals["pack"]}
+    print(f"audioseal {LSTM_BATCH} x {AUDIOSEAL_SECONDS} s: launches per call, recurrence "
+          f"kernel {per_call['lstm']}, block kernel {per_call['block']}, pack kernel "
+          f"{per_call['pack']}; totals {totals}")
+    return totals["lstm"]
 
 
 def time_lstm(torch, report, card):
@@ -862,6 +884,183 @@ def time_lstm(torch, report, card):
           f"reference loop {plain_ms * calls:.1f} ms; bound {bound * 1e3:.3f} ms at the f32 FMA "
           f"peak ({bound_by}, {bound * 1e3 / (ms * calls):.3f} of it reached), "
           f"{tf32_bound * 1e3:.3f} ms at the TF32 peak [{card}]")
+    return entry
+
+
+# AudioSeal's residual blocks (ops/dense_resblock.py) at the shapes its
+# serving path runs: per embed+detect the generator's encoder and decoder and
+# the detector's encoder, one block per stage at C = 32 / 64 / 128 / 256 over
+# 480,000 / 240,000 / 60,000 / 12,000 samples of 8 clips (counts_resblock's
+# resblock_shapes). RESBLOCK_TOL is tests/test_torch_dense_resblock.py's
+# KERNEL_TOL: the gap over the plain version's peak, which one TF32 pass
+# fails.
+RESBLOCK_CALLS = {"embed_batch": 8, "detect_batch": 4}
+PACK_CALLS = {"embed_batch": 16, "detect_batch": 8}
+RESBLOCK_TOL = 5e-6
+# (B, C, T, dilation) of the kernel's check: each width at a ragged tile,
+# a dilated block, lengths shorter than the halo, and 4-byte loads; then
+# the serving path's own shapes (path_resblock_shapes)
+RESBLOCK_SHAPES = [(2, 32, 3001, 1), (2, 64, 3001, 1), (2, 128, 3001, 1), (2, 256, 3001, 1),
+                   (3, 64, 1000, 3), (8, 256, 2, 1), (1, 32, 480001, 1)]
+
+
+def path_resblock_shapes():
+    """(samples, width) of each of the 12 residual blocks of one AudioSeal
+    embed+detect at 30 s clips (counts_resblock's resblock_shapes, from the
+    benchmark's configuration)."""
+    sys.path.append(str(ROOT / "portbench"))
+    from counts_resblock import resblock_shapes
+
+    cfg = json.loads((ROOT / "portbench" / "configs" / "audioseal_16bits.json").read_text())
+    return resblock_shapes(cfg["model"]["generator"]["seanet"], AUDIOSEAL_SECONDS * CLIP)
+
+
+def resblock_module(torch, c, dilation, seed):
+    """AudioSeal's residual block at width ``c`` on the card, weight norm
+    on, weights drawn from ``seed`` (biases and gains off their init)."""
+    from waveverify_torch.modules.audiocraft import SEANetResnetBlock
+    from waveverify_torch.modules.conv import init_params
+
+    m = SEANetResnetBlock(c, (3, 1), (dilation, 1), norm="weight_norm", pad_mode="constant")
+    g = torch.Generator().manual_seed(seed)
+    init_params(m, g)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    return m.cuda().eval()
+
+
+def check_resblock_kernel(torch, report):
+    """Phase 3d: AudioSeal's fused residual block kernel. Its build (ptxas's
+    registers and spills of each tiling; any spill fails); its pack kernel,
+    ``pack_on_card``, against ``pack_weights`` at each width's two conv
+    shapes, bit for bit; at RESBLOCK_SHAPES and at the serving path's four
+    (8, C, T) shapes the block's kernel route against the plain version,
+    ``dense_resblock_ref``, at RESBLOCK_TOL, one launch and two pack
+    launches each; the TF32 control fails RESBLOCK_TOL at the first
+    shape."""
+    from waveverify_torch.ops import dense_resblock as dr
+
+    t0 = time.perf_counter()
+    lib = dr.build()
+    build_s = time.perf_counter() - t0
+    ptxas = (lib.parent / f"{lib.stem}.log").read_text()
+    built = []
+    for entry, stack, stores, loads, regs in re.findall(
+            r"Compiling entry function '(\w*dense_resblock_kernel\w*)'.*?(\d+) bytes stack "
+            r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+            ptxas, re.S):
+        tiling = [int(v) for v in re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()]
+        built.append({"tiling": tiling, "registers": int(regs), "spill_store_bytes": int(stores),
+                      "spill_load_bytes": int(loads), "stack_bytes": int(stack)})
+    report["resblock_ptxas"] = {"build_s": build_s, "kernels": built}
+    print(f"resblock build: {lib.name} in {build_s:.1f} s; (NT1, MT1, NT2, MT2): registers, "
+          "spills " + "; ".join(f"{k['tiling']}: {k['registers']}, {k['spill_store_bytes']} / "
+                                f"{k['spill_load_bytes']} B" for k in built))
+    if len(built) != len(dr.TILINGS):
+        raise AssertionError(f"ptxas log lists {len(built)} dense_resblock kernels")
+    if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in built):
+        raise AssertionError("ptxas spilled registers in dense_resblock_kernel")
+    packs = []
+    for c in dr.WIDTH_TILING:
+        for n, k_in, taps in ((c // 2, c, 3), (c, c // 2, 1)):
+            w = torch.randn(n, k_in, taps, device="cuda")
+            same = bool(torch.equal(dr.pack_on_card(w, taps), dr.pack_weights(w, taps)))
+            packs.append({"N": n, "K": k_in, "taps": taps, "equal": same})
+            if not same:
+                raise AssertionError(f"resblock: pack_on_card != pack_weights at {packs[-1]}")
+    print(f"resblock pack kernel: equal to pack_weights at {len(packs)} conv shapes")
+    shapes = RESBLOCK_SHAPES + [(LSTM_BATCH, c, t, 1)
+                                for t, c in dict.fromkeys(path_resblock_shapes())]
+    rows, launches = [], 0
+    for i, (b, c, t, d) in enumerate(shapes):
+        m = resblock_module(torch, c, d, 500 + i)
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        x = torch.randn(b, c, t, device="cuda", generator=gen)
+        with torch.no_grad():
+            c1, c2 = m.block[1].conv, m.block[3].conv
+            args = (c1.weight(), c1.b, c2.weight(), c2.b)
+            before = dr.dense_resblock.launches, dr.pack_on_card.launches
+            got = m(x)
+            torch.cuda.synchronize()
+            n = dr.dense_resblock.launches - before[0]
+            n_pack = dr.pack_on_card.launches - before[1]
+            want = dr.dense_resblock_ref(x, *args, dilation=d)
+        launches += n
+        gap = rel_gap(got, want)
+        row = {"B": b, "C": c, "T": t, "dilation": d, "launches": n, "pack_launches": n_pack,
+               "gap": gap, "max_abs_err": float((got - want).abs().max())}
+        if i == 0:
+            with torch.no_grad():
+                row["tf32_control_gap"] = rel_gap(
+                    dr.dense_resblock_ref(x, *args, dilation=d, tf32=True), want)
+            if not row["tf32_control_gap"] > RESBLOCK_TOL:
+                raise AssertionError(f"resblock: the TF32 control passes RESBLOCK_TOL: {row}")
+        del got, want, x
+        rows.append(row)
+        print(f"resblock B={b} C={c} T={t} d={d} ({n} launch, {n_pack} pack): gap {gap:.2e} over "
+              f"the plain version's peak" + (f", TF32 control {row['tf32_control_gap']:.2e}"
+                                             if "tf32_control_gap" in row else ""))
+        if n != 1 or n_pack != 2 or not gap < RESBLOCK_TOL:
+            raise AssertionError(f"resblock: {row} (RESBLOCK_TOL {RESBLOCK_TOL})")
+    report["resblock_kernel_check"] = {"shapes": rows, "launches": launches, "packs": packs}
+
+
+def time_resblock(torch, report, card):
+    """Phase 5's residual block line at the path's shapes, per embed+detect
+    (the 12 blocks of counts_resblock's resblock_shapes at batch 8 x 30 s),
+    CUDA events: the block's kernel route (the convs' weight norms, the
+    weights' packing and the launch), the same modules on their own ops
+    (``library_ms``: cuDNN's convs and PyTorch's elementwise passes, the
+    path before the kernel), the plain version, and the bound: each block's
+    input read and output written once, its weights once, at the memory
+    bandwidth, or its products at the TF32 peak, whichever is larger
+    (``resblock_roofline``'s yardstick). Returns the kernels line's entry."""
+    shapes = path_resblock_shapes()  # puts portbench/ on the path
+    from counts_resblock import resblock_cost
+    from waveverify_torch.modules.audiocraft import SEANetResnetBlock
+    from waveverify_torch.ops import dense_resblock as dr
+
+    per_shape = {}
+    for t, c in dict.fromkeys(shapes):
+        m = resblock_module(torch, c, 1, 600 + c)
+        x = torch.randn(LSTM_BATCH, c, t, device="cuda")
+        with torch.no_grad():
+            ms = cuda_time(torch, lambda: m(x), 10)
+            plain_ms = cuda_time(
+                torch, lambda: dr.dense_resblock_ref(
+                    x, m.block[1].conv.weight(), m.block[1].conv.b, m.block[3].conv.weight(),
+                    m.block[3].conv.b), 3)
+            fused = SEANetResnetBlock._fused_plan
+            SEANetResnetBlock._fused_plan = lambda self, x: None
+            try:
+                library_ms = cuda_time(torch, lambda: m(x), 10)
+            finally:
+                SEANetResnetBlock._fused_plan = fused
+        flops, nbytes = resblock_cost(LSTM_BATCH, t, c)
+        bound = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+        per_shape[(t, c)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": bound * 1e3}
+        print(f"resblock B={LSTM_BATCH} C={c} T={t}: kernel route {ms:.3f} ms, modules "
+              f"{library_ms:.3f} ms, plain version {plain_ms:.3f} ms, bound {bound * 1e3:.4f} ms "
+              f"({bound * 1e3 / ms:.3f} of it reached) [{card}]")
+    tot = {k: sum(per_shape[s][k] for s in shapes)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if tot["ms"] < tot["bound_ms"]:
+        raise AssertionError(f"resblock: {tot['ms']} ms under its bound {tot['bound_ms']} ms")
+    entry = {"name": "dense_resblock", "route": "cuda",
+             "source": "waveverify_torch/csrc/dense_resblock.cu", "replaces": None,
+             "launches": report["resblock_kernel_check"]["launches"]
+             + report.get("audioseal", {}).get("resblock_launches", 0),
+             "max_abs_err": max(r["max_abs_err"]
+                                for r in report["resblock_kernel_check"]["shapes"]),
+             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+             "bound_by": "bytes", "library_ms": tot["library_ms"]}
+    report["resblock_times"] = {"per_shape": {f"{c}x{t}": v for (t, c), v in per_shape.items()},
+                                **entry}
+    print(f"resblock per embed+detect ({len(shapes)} blocks): kernel route {tot['ms']:.3f} ms, "
+          f"modules {tot['library_ms']:.3f} ms, plain version {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.3f} of it reached) [{card}]")
     return entry
 
 
@@ -3776,6 +3975,7 @@ def main() -> int:
     strict_f32()
     check_kernel(torch, rc, report)
     check_lstm_kernel(torch, report)
+    check_resblock_kernel(torch, report)
     if "--kernel-only" in sys.argv[1:]:
         return 0
     if "--kernel-times" in sys.argv[1:]:
@@ -3924,6 +4124,7 @@ def main() -> int:
 
     tot, bound, bound_by, fma_bound = time_chains(torch, rc, report, card)
     lstm_entry = time_lstm(torch, report, card)
+    resblock_entry = time_resblock(torch, report, card)
     # 6. training: the chain's gradients under checkpoint, one step on the
     # card against the CPU, the CLI's run (its checkpoint kept for phase 8),
     # times
@@ -4060,7 +4261,7 @@ def main() -> int:
         "bound_ms": bound * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
-    }, lstm_entry]}
+    }, lstm_entry, resblock_entry]}
     report["kernels"] = kernels
     report["fma_bound_ms"] = fma_bound * 1e3
     report["products_matmul_ms"] = {"f32": tot["matmul_f32_ms"],

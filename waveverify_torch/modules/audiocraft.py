@@ -14,7 +14,9 @@ identity or 1x1 shortcut), unlike ``modules/seanet.py``'s pointwise-then-
 depthwise block. The LSTM bottleneck holds a ``torch.nn.LSTM`` with
 audiocraft's skip; on a card it runs as the persistent recurrence kernel
 (``ops/lstm_recurrence.py``). It runs in float32 whatever the serving
-dtype, inside the span ``seanet.lstm``.
+dtype, inside the span ``seanet.lstm``. On a card without autograd the
+residual block runs as one launch of the fused block kernel
+(``ops/dense_resblock.py``), inside the span ``seanet.resblock``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 from waveverify_torch import spans
 from waveverify_torch.modules.conv import SConv1d, SConvTranspose1d
 from waveverify_torch.modules.seanet import get_activation
+from waveverify_torch.ops import dense_resblock as dr
 from waveverify_torch.ops.lstm_recurrence import device_plan, lstm_recurrence
 
 NORMS = ("none", "weight_norm")
@@ -38,7 +41,8 @@ class Activation(nn.Module):
 
     def __init__(self, name: str, params: Optional[dict] = None):
         super().__init__()
-        self.fn: Callable = get_activation(name, **(params or {}))
+        self.name, self.params = name, dict(params or {})
+        self.fn: Callable = get_activation(name, **self.params)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fn(x)
@@ -81,7 +85,15 @@ class StreamableLSTM(nn.Module):
 class SEANetResnetBlock(nn.Module):
     """audiocraft's residual block: (activation, conv) per kernel size, the
     first from ``dim`` to ``dim // compress``, the last back to ``dim``;
-    plus an identity shortcut (``true_skip``) or a 1x1 conv."""
+    plus an identity shortcut (``true_skip``) or a 1x1 conv.
+
+    On a card without autograd, a block of AudioSeal's form (ELU, a k-tap
+    conv with k odd to ``dim // 2``, ELU, a 1x1 conv, both with biases and
+    a norm without a module of its own; zero padding, not causal; the
+    identity shortcut) at a width the kernel's plan serves runs as one
+    launch of the fused block kernel (``resblock.fused``), on the convs'
+    effective weights. Every other block, and every block under autograd or
+    on the CPU, runs its modules."""
 
     def __init__(self, dim: int, kernel_sizes: Sequence[int] = (3, 1),
                  dilations: Sequence[int] = (1, 1), activation: str = "ELU",
@@ -104,7 +116,39 @@ class SEANetResnetBlock(nn.Module):
                          SConv1d(dim, dim, 1, norm=norm, causal=causal, pad_mode=pad_mode))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.shortcut(x) + self.block(x)
+        with spans.span("seanet.resblock", device=True):
+            plan = self._fused_plan(x)
+            if plan is None:
+                return self.shortcut(x) + self.block(x)
+            conv1, conv2 = self.block[1].conv, self.block[3].conv
+            return dr.dense_resblock(x, conv1.weight(), conv1.b, conv2.weight(), conv2.b,
+                                     conv1.dilation, self.block[0].params.get("alpha", 1.0),
+                                     plan)
+
+    def _fused_plan(self, x: torch.Tensor) -> Optional["dr.ResblockPlan"]:
+        """The fused kernel's plan for this block on ``x``, or None where the
+        block runs its modules."""
+        if not (x.is_cuda and x.dtype == torch.float32 and not torch.is_grad_enabled()
+                and self._fused_form(x.shape[1])):
+            return None
+        conv1 = self.block[1].conv
+        return dr.device_plan(x.device, x.shape[1], conv1.kernel_size, conv1.dilation)
+
+    def _fused_form(self, dim: int) -> bool:
+        """Whether the block at width ``dim`` has the form the kernel
+        computes (see the class's docstring), whatever its input."""
+        if not isinstance(self.shortcut, nn.Identity) or len(self.block) != 4:
+            return False
+        acts, convs = self.block[0::2], self.block[1::2]
+        if any(a.name != "ELU" or a.params != acts[0].params for a in acts):
+            return False
+        if any(c.causal or c.pad_mode != "constant" or c.conv.b is None
+               or c.conv.norm is not None or c.conv.stride != 1 or c.conv.groups != 1
+               for c in convs):
+            return False
+        conv1, conv2 = convs[0].conv, convs[1].conv
+        return (conv1.kernel_size % 2 == 1 and conv1.v.shape[:2] == (dim // 2, dim)
+                and conv2.v.shape == (dim, dim // 2, 1))
 
 
 def _check_norm(norm: str) -> None:
