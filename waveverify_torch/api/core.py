@@ -16,6 +16,9 @@ decisions (bits from the sigmoid of each logit's time-mean, the detection
 score and the presence channel from the detector's softmax). AudioSeal is
 neither causal nor stateless in time (its bottleneck is an LSTM), so every
 input runs whole at its own length: no bucket padding, no windows.
+WavMark too (``config=WavMarkConfig()``; ``models/wavmark.py``): it marks
+and decodes whole 1 s segments of the input (a shorter tail is returned
+unmarked and ignored by detection), and has no locator.
 
 Weights come from a ``save_weights_npz`` file, a reference ``.pth`` (the
 paper's checkpoint format, converted by ``waveverify_torch.convert``), a
@@ -55,11 +58,13 @@ from waveverify_torch.api.watermark_id import WatermarkID
 from waveverify_torch.config import (
     AudioSealConfig,
     TrainConfig,
+    WavMarkConfig,
     apply_model_config,
     load_config,
 )
 from waveverify_torch.models import WatermarkModels
 from waveverify_torch.models.audioseal import AudioSealModels, init_audioseal
+from waveverify_torch.models.wavmark import WavMarkModels, init_wavmark
 from waveverify_torch.serve import (
     locate_probs,
     resolve_device,
@@ -111,9 +116,13 @@ class WaveVerify:
         (generator, detector: ``generator_base.pth`` / ``detector_base.pth``
         or state dicts of ``AudioSealWM`` / ``AudioSealDetector``), or
         ``None`` for PyTorch's default initialisers drawn from ``seed``.
-        A missing, extra or misshapen weight raises.
+        Under a ``WavMarkConfig``: the path of WavMark's checkpoint (the
+        released ``Model``'s state dict), or ``None`` for PyTorch's
+        default initialisers with HiNet's zero ``conv5`` (an identity
+        network). A missing, extra or misshapen weight raises.
     config_path: a YAML of the ``conf/base.yml`` schema. config: a
-        ``TrainConfig``, or an ``AudioSealConfig`` to serve AudioSeal. An
+        ``TrainConfig``, an ``AudioSealConfig`` to serve AudioSeal, or a
+        ``WavMarkConfig`` to serve WavMark. An
         explicit ``config`` wins; otherwise the checkpoint's snapshot
         overrides the YAML's (or the defaults') model sections, with a
         WARNING when a YAML was given too.
@@ -128,7 +137,8 @@ class WaveVerify:
 
     def __init__(self, checkpoint_path: Optional[Union[str, Path, Sequence]] = None,
                  config_path: Optional[Union[str, Path]] = None,
-                 config: Optional[Union[TrainConfig, AudioSealConfig]] = None,
+                 config: Optional[Union[TrainConfig, AudioSealConfig,
+                                        WavMarkConfig]] = None,
                  seed: int = 0,
                  precision: Optional[str] = "highest",
                  serve_dtype: str = "float32",
@@ -138,10 +148,11 @@ class WaveVerify:
         self._act = resolve_dtype(serve_dtype)
         if precision is not None:
             set_conv_precision(precision)
-        if isinstance(config, AudioSealConfig):
-            self._load_audioseal(checkpoint_path, config, seed)
-        else:
+        loader = self._LOADERS.get(type(config))
+        if loader is None:
             self._load_waveverify(checkpoint_path, config_path, config, seed)
+        else:
+            loader(self, checkpoint_path, config, seed)
         self.models.requires_grad_(False)
         self.models.eval().to(self.device)
         # the devices batched serving splits over, each with its replica:
@@ -163,6 +174,26 @@ class WaveVerify:
             load_audioseal(self.models, generator_path, detector_path)
         self.sample_rate = config.sample_rate
         self.hop = config.hop_length
+
+    def _load_wavmark(self, checkpoint_path, config: WavMarkConfig, seed: int) -> None:
+        if self.serve_dtype != "float32":
+            raise NotImplementedError(f"serve_dtype {self.serve_dtype!r}: WavMark "
+                                      "serves in float32 only")
+        self.config = config
+        self.models = WavMarkModels(config)
+        if checkpoint_path is None:
+            logger.warning("no checkpoint given - using randomly initialized "
+                           "weights")
+            init_wavmark(self.models, torch.Generator().manual_seed(seed))
+        else:
+            from waveverify_torch.convert import load_wavmark
+
+            load_wavmark(self.models, checkpoint_path)
+        self.sample_rate = config.sample_rate
+        self.hop = config.hop_length
+
+    # the loader of each model that is not WaveVerify's, by its config's type
+    _LOADERS = {AudioSealConfig: _load_audioseal, WavMarkConfig: _load_wavmark}
 
     def _load_waveverify(self, checkpoint_path, config_path, config, seed: int) -> None:
         path = None if checkpoint_path is None else Path(checkpoint_path)
@@ -318,7 +349,9 @@ class WaveVerify:
         ``decide``. WaveVerify: the time-mean of sigmoid(logits) per bit,
         and as confidence their mean. AudioSeal: the sigmoid of each bit
         logit's time-mean, and as confidence the detection score, the share
-        of samples whose presence probability exceeds 0.5."""
+        of samples whose presence probability exceeds 0.5. WavMark: each
+        payload value's mean over the whole segments, clipped to [0, 1],
+        and as confidence the share of pattern bits read right."""
         with spans.span("api.upload"):
             x = self._tensor(audio, device)
         with spans.span("api.detector"):
@@ -455,7 +488,8 @@ class WaveVerify:
         """Presence mask from an in-memory float32 array. The locator works
         at sample resolution, so trimming the bucket's padding gives the
         mask at the input's length. AudioSeal's mask is its detector's
-        presence channel."""
+        presence channel; WavMark has none and raises
+        ``NotImplementedError``."""
         audio = np.asarray(audio, np.float32).ravel()
         if self._chunked(audio.shape[-1]):
             return self._locate_long(audio)

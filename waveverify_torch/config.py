@@ -340,6 +340,33 @@ class AudioSealConfig:
         return cls(**kwargs)
 
 
+@dataclass(frozen=True)
+class WavMarkConfig:
+    """WavMark (Chen et al., arXiv:2308.12770; github.com/wavmark/wavmark):
+    an invertible network of coupling blocks over the STFT of 1 s segments.
+    The defaults are the released model's, ``wavmark.load_model()``'s
+    ``Model(16000, num_bit=32, n_fft=1000, hop_length=400, num_layers=8)``
+    with HiNet's blocks (``clamp`` 2.0, dense subnets of growth 32, LeakyReLU
+    slope 0.01). The 32 bits are ``pattern`` (16 fixed bits that mark a
+    segment as watermarked) followed by the 16-bit payload. ``pattern`` is
+    the port's own: the published ``fix_pattern`` could not be checked."""
+
+    sample_rate: int = 16000
+    segment: int = 16000
+    n_fft: int = 1000
+    hop_length: int = 400
+    num_layers: int = 8
+    clamp: float = 2.0
+    growth: int = 32
+    slope: float = 0.01
+    pattern: Tuple[int, ...] = (1, 1, 1, 1, 1, 0, 1, 0, 0, 1, 0, 0, 1, 1, 0, 1)
+    payload_bits: int = 16
+
+    @property
+    def num_bits(self) -> int:
+        return len(self.pattern) + self.payload_bits
+
+
 def _build(cls, section: Dict[str, Any]):
     valid = {f.name for f in dataclasses.fields(cls)}
     kwargs: Dict[str, Any] = {}

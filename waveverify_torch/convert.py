@@ -26,6 +26,9 @@ config (the JAX package's converter assumes weight norm and no
 :func:`save_converted` writes the converted weights as an orbax inference
 checkpoint (``<out_dir>/latest``, through ``train.ocdbt``), which both
 packages' ``WaveVerify`` and the JAX package's ``load_params`` read.
+
+AudioSeal's two checkpoints (:func:`load_audioseal`) and WavMark's one
+(:func:`load_wavmark`) load straight into their holders' modules.
 """
 
 from __future__ import annotations
@@ -481,10 +484,10 @@ def fuse_weight_g_v(sd: StateDict) -> StateDict:
     return out
 
 
-def load_audioseal_state_dict(path: Union[str, Path]) -> StateDict:
-    """One of AudioSeal's checkpoints (``generator_base.pth``,
-    ``detector_base.pth``, or a state dict of either tree saved with
-    ``torch.save``; a ``model`` entry is its state dict) -> numpy float32,
+def read_state_dict(path: Union[str, Path]) -> StateDict:
+    """A state dict saved with ``torch.save`` (one of AudioSeal's
+    checkpoints, ``generator_base.pth`` / ``detector_base.pth``, or
+    WavMark's; a ``model`` entry is its state dict) -> numpy float32,
     ``module.`` / ``_orig_mod.`` prefixes stripped, weight norm and
     parametrizations fused."""
     import torch
@@ -500,7 +503,7 @@ def load_audioseal_state_dict(path: Union[str, Path]) -> StateDict:
 def convert_audioseal(generator_sd: StateDict, detector_sd: StateDict,
                       models) -> Dict[str, Array]:
     """AudioSeal's generator and detector state dicts (fused, as
-    :func:`load_audioseal_state_dict` gives them) -> the state dict of
+    :func:`read_state_dict` gives them) -> the state dict of
     ``models`` (an ``AudioSealModels``), through :data:`AUDIOSEAL_NAMES`.
     A key that maps onto no parameter, a parameter no key fills, or a shape
     that differs raises."""
@@ -540,7 +543,52 @@ def load_audioseal(models, generator_path: Union[str, Path],
     ``AudioSealModels``)."""
     import torch
 
-    flat = convert_audioseal(load_audioseal_state_dict(generator_path),
-                             load_audioseal_state_dict(detector_path), models)
+    flat = convert_audioseal(read_state_dict(generator_path),
+                             read_state_dict(detector_path), models)
+    models.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                            for k, v in flat.items()})
+
+
+# ---------------------------------------------------------------------------
+# WavMark
+# ---------------------------------------------------------------------------
+
+
+def convert_wavmark(sd: StateDict, models) -> Dict[str, Array]:
+    """A state dict of WavMark's ``Model`` (as :func:`read_state_dict` gives
+    it: ``hinet.inv_blocks.{i}.{r,y,f}.conv{1..5}.{weight,bias}``,
+    ``watermark_fc.*``, ``watermark_fc_back.*``) -> the state dict of
+    ``models`` (a ``WavMarkModels``): a conv's ``weight`` / ``bias`` become
+    the port's ``v`` / ``b``, every other leaf keeps its name. A key that
+    maps onto no parameter, a parameter no key fills, or a shape that
+    differs raises."""
+    target = {k: tuple(v.shape) for k, v in models.state_dict().items()}
+    out: Dict[str, Array] = {}
+    for key, value in sd.items():
+        stem, _, leaf = key.rpartition(".")
+        if leaf == "weight" and f"{stem}.v" in target:
+            out[f"{stem}.v"] = value
+        elif leaf == "bias" and f"{stem}.b" in target:
+            out[f"{stem}.b"] = value
+        else:
+            out[key] = value
+    extra = sorted(set(out) - set(target))
+    if extra:
+        raise KeyError(f"WavMark entries no parameter takes: {extra[:5]}")
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"parameters not in the WavMark checkpoint: {missing[:5]}")
+    for name, shape in target.items():
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(out[name].shape)} != {shape}")
+    return out
+
+
+def load_wavmark(models, path: Union[str, Path]) -> None:
+    """Copy WavMark's checkpoint (the released ``Model``'s state dict, as
+    ``wavmark.load_model`` reads it) into ``models`` (a ``WavMarkModels``)."""
+    import torch
+
+    flat = convert_wavmark(read_state_dict(path), models)
     models.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                             for k, v in flat.items()})

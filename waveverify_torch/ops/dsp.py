@@ -188,6 +188,56 @@ def stft(x: torch.Tensor, n_fft: int, hop: int,
     return _rdft(frame_signal(x, n_fft, hop) * window, n_fft)
 
 
+@lru_cache(maxsize=None)
+def _irdft_basis(n_fft: int) -> np.ndarray:
+    """Inverse real-DFT basis ``[2F, n_fft]``: rows cos then -sin, weighted
+    1 at DC and Nyquist and 2 between, over n_fft; ``(real, imag) @ basis``
+    is ``irfft`` (the imaginary parts of DC and Nyquist drop out, as they
+    do in ``irfft``)."""
+    f = n_fft // 2 + 1
+    k = np.arange(f, dtype=np.float64)[:, None]
+    n = np.arange(n_fft, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    weight = np.full((f, 1), 2.0)
+    weight[0] = 1.0
+    if n_fft % 2 == 0:
+        weight[-1] = 1.0
+    return (np.concatenate([np.cos(ang), -np.sin(ang)], axis=0)
+            * np.concatenate([weight, weight]) / n_fft).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _istft_envelope(n_fft: int, hop: int, n_frames: int, length: int) -> np.ndarray:
+    """The centred overlap-add of the squared Hann window, trimmed to
+    ``length`` samples: what :func:`istft` divides by."""
+    win2 = _hann_window(n_fft).astype(np.float64) ** 2
+    env = np.zeros(n_fft + hop * (n_frames - 1))
+    for i in range(n_frames):
+        env[i * hop:i * hop + n_fft] += win2
+    env = env[n_fft // 2:n_fft // 2 + length]
+    if np.min(env) < 1e-11:
+        raise ValueError(f"n_fft {n_fft}, hop {hop}: the window's overlap-add "
+                         "vanishes, the STFT cannot be inverted")
+    return env.astype(np.float32)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop: int, length: int) -> torch.Tensor:
+    """The inverse of :func:`stft` with its Hann window and ``center``:
+    ``spec`` ``[..., n_frames, 2F]`` (the real parts, then the imaginary)
+    -> ``[..., length]``, as ``torch.istft``: each frame's ``irfft`` (one
+    matmul), windowed, overlap-added (``F.fold``), divided by the
+    overlap-added squared window, the centre padding trimmed."""
+    n_frames = spec.shape[-2]
+    lead = spec.shape[:-2]
+    frames = torch.matmul(spec, device_const(_irdft_basis, n_fft, like=spec))
+    frames = frames * device_const(_hann_window, n_fft, like=spec)
+    total = n_fft + hop * (n_frames - 1)
+    y = F.fold(frames.reshape(-1, n_frames, n_fft).transpose(1, 2),
+               output_size=(1, total), kernel_size=(1, n_fft), stride=(1, hop))
+    y = y.reshape(lead + (total,))[..., n_fft // 2:n_fft // 2 + length]
+    return y / device_const(_istft_envelope, n_fft, hop, n_frames, length, like=spec)
+
+
 def stft_match_stride(x: torch.Tensor, window_length: int,
                       hop: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
